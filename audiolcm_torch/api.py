@@ -74,11 +74,13 @@ def build_pipeline(
     by default; raises without a card unless device="cpu").
 
     compute_dtype defaults to bf16 on CUDA and f32 on the CPU. use_flash
-    defaults to False (einsum attention); True raises until the flash kernel
-    is ported. fast_snake=True swaps the vocoder snakes' cos for a
-    polynomial. pallas_stage_max_channels=48 runs the vocoder's two narrowest
-    stages through the fused AMP-stage kernel (nn/amp_stage.py); the
-    pallas_stage_* names are the JAX package's knobs.
+    defaults to False (einsum attention), as in the JAX package; True runs
+    the DiT's self-attention through the flash kernel
+    (nn/flash_attention.py; its plain version on the CPU). fast_snake=True
+    swaps the vocoder snakes' cos for a polynomial.
+    pallas_stage_max_channels=48 runs the vocoder's two narrowest stages
+    through the fused AMP-stage kernel (nn/amp_stage.py); the pallas_stage_*
+    names are the JAX package's knobs.
 
     profile="serving" sets fast_snake=True and pallas_stage_max_channels=48
     (when 0). Unlike the JAX package's serving profile it leaves the

@@ -1,8 +1,10 @@
 """DDPM noise schedule, precomputed in float64 and stored as float32.
 
 The "linear" beta schedule of the reference: betas = linspace(sqrt(b0),
-sqrt(b1), N)^2 with b0=0.00085, b1=0.012 (configs/audiolcm.yaml).
-Arrays are numpy; the samplers read the few entries they need.
+sqrt(b1), N)^2 with b0=0.00085, b1=0.012 (configs/audiolcm.yaml), and the
+tables `ddpm.py:116-168` derives from it (v_posterior mixes the posterior
+variance towards beta). Arrays are numpy; the samplers read the few
+entries they need, and the q/posterior helpers gather them per batch row.
 """
 
 from __future__ import annotations
@@ -10,6 +12,14 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
+
+
+def _gather(table: np.ndarray, t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """table[t] as f32 on like's device, shaped (B, 1, ..., 1) to broadcast
+    against like."""
+    vals = torch.as_tensor(table, dtype=torch.float32, device=like.device)[t.long()]
+    return vals.reshape(vals.shape + (1,) * (like.dim() - vals.dim()))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -17,6 +27,14 @@ class NoiseSchedule:
     betas: np.ndarray
     alphas_cumprod: np.ndarray
     alphas_cumprod_prev: np.ndarray
+    sqrt_alphas_cumprod: np.ndarray
+    sqrt_one_minus_alphas_cumprod: np.ndarray
+    sqrt_recip_alphas_cumprod: np.ndarray
+    sqrt_recipm1_alphas_cumprod: np.ndarray
+    posterior_variance: np.ndarray
+    posterior_log_variance_clipped: np.ndarray
+    posterior_mean_coef1: np.ndarray
+    posterior_mean_coef2: np.ndarray
 
     @property
     def num_timesteps(self) -> int:
@@ -24,9 +42,44 @@ class NoiseSchedule:
 
     @classmethod
     def linear(cls, timesteps: int = 1000, linear_start: float = 0.00085,
-               linear_end: float = 0.012) -> "NoiseSchedule":
+               linear_end: float = 0.012, v_posterior: float = 0.0) -> "NoiseSchedule":
         betas = np.linspace(linear_start**0.5, linear_end**0.5, timesteps, dtype=np.float64) ** 2
-        acp = np.cumprod(1.0 - betas)
+        alphas = 1.0 - betas
+        acp = np.cumprod(alphas)
         acp_prev = np.append(1.0, acp[:-1])
+        post_var = (1 - v_posterior) * betas * (1.0 - acp_prev) / (1.0 - acp) + v_posterior * betas
         f32 = lambda a: np.asarray(a, dtype=np.float32)
-        return cls(betas=f32(betas), alphas_cumprod=f32(acp), alphas_cumprod_prev=f32(acp_prev))
+        return cls(
+            betas=f32(betas), alphas_cumprod=f32(acp), alphas_cumprod_prev=f32(acp_prev),
+            sqrt_alphas_cumprod=f32(np.sqrt(acp)),
+            sqrt_one_minus_alphas_cumprod=f32(np.sqrt(1.0 - acp)),
+            sqrt_recip_alphas_cumprod=f32(np.sqrt(1.0 / acp)),
+            sqrt_recipm1_alphas_cumprod=f32(np.sqrt(1.0 / acp - 1)),
+            posterior_variance=f32(post_var),
+            posterior_log_variance_clipped=f32(np.log(np.maximum(post_var, 1e-20))),
+            posterior_mean_coef1=f32(betas * np.sqrt(acp_prev) / (1.0 - acp)),
+            posterior_mean_coef2=f32((1.0 - acp_prev) * np.sqrt(alphas) / (1.0 - acp)))
+
+    def q_sample(self, x_start: torch.Tensor, t: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+        """Forward diffusion q(x_t | x_0) (`ddpm.py:273-277`)."""
+        return (_gather(self.sqrt_alphas_cumprod, t, x_start) * x_start
+                + _gather(self.sqrt_one_minus_alphas_cumprod, t, x_start) * noise)
+
+    def predict_start_from_noise(self, x_t: torch.Tensor, t: torch.Tensor,
+                                 noise: torch.Tensor) -> torch.Tensor:
+        """x0-hat from an eps prediction (`ddpm.py:215-219`)."""
+        return (_gather(self.sqrt_recip_alphas_cumprod, t, x_t) * x_t
+                - _gather(self.sqrt_recipm1_alphas_cumprod, t, x_t) * noise)
+
+    def predict_eps_from_xstart(self, x_t: torch.Tensor, t: torch.Tensor,
+                                x0: torch.Tensor) -> torch.Tensor:
+        return ((_gather(self.sqrt_recip_alphas_cumprod, t, x_t) * x_t - x0)
+                / _gather(self.sqrt_recipm1_alphas_cumprod, t, x_t))
+
+    def q_posterior(self, x_start: torch.Tensor, x_t: torch.Tensor, t: torch.Tensor):
+        """Posterior q(x_{t-1} | x_t, x_0): (mean, variance, log variance)
+        (`ddpm.py:221-228`)."""
+        mean = (_gather(self.posterior_mean_coef1, t, x_t) * x_start
+                + _gather(self.posterior_mean_coef2, t, x_t) * x_t)
+        return (mean, _gather(self.posterior_variance, t, x_t),
+                _gather(self.posterior_log_variance_clipped, t, x_t))

@@ -8,6 +8,10 @@ TPU kernel `audiolcm_tpu/nn/pallas_amp_stage.py:fused_amp_stage_cl_batched`.
 
   * `fused_amp_stage` — the wrapper. A CUDA tensor launches the kernel (or
     raises); a CPU tensor runs `fused_amp_stage_plain`.
+  * `fused_amp_stage_tc` / `fused_amp_stage_cl` — the same function with
+    the launch structure of the TPU kernels `fused_amp_stage` (K2a) and
+    `fused_amp_stage_cl` (K2b): one launch of the same CUDA kernel per batch
+    element.
   * `fused_amp_stage_plain` — the same stage in plain torch ops with the
     unfused path's edge rules (`resample_cf.alias_free_snake_cf`,
     `conv1d_cf`). Used by the CPU tests and by chip_smoke's comparison.
@@ -35,8 +39,11 @@ from audiolcm_torch.nn.resample import correlate, alias_free_taps
 from audiolcm_torch.nn.resample_cf import alias_free_snake_cf, conv1d_cf
 from audiolcm_torch.nn.snake import snake_binv
 
-# Kernel launches since the last reset (chip_smoke sets it to 0 around a run).
+# Kernel launches since the last reset (chip_smoke sets them to 0 around a
+# run): by fused_amp_stage (K1), fused_amp_stage_tc (K2a), fused_amp_stage_cl (K2b).
 LAUNCHES = 0
+LAUNCHES_TC = 0
+LAUNCHES_CL = 0
 
 R_ACT = 6  # receptive radius of the alias-free activation
 SMEM_BYTES = 232448  # H100: shared memory one block can use
@@ -283,29 +290,41 @@ def pack_stage_params(stage_params: List[dict], device) -> tuple:
     return torch.cat(ws).to(device), torch.cat(vecs).to(device)
 
 
-def _launch(x: torch.Tensor, stage_params, kernel_sizes, dilations, fast) -> torch.Tensor:
-    global LAUNCHES
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"fused AMP stage kernel takes float32 or bfloat16, not {x.dtype}")
-    b, t, c = x.shape
+def _launch_cf(xc: torch.Tensor, out: torch.Tensor, packed: tuple, kernel_sizes, dilations,
+               fast) -> None:
+    """One kernel launch over channels-first contiguous xc (B, C, T) into
+    out; packed = pack_stage_params(...)."""
+    if xc.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"fused AMP stage kernel takes float32 or bfloat16, not {xc.dtype}")
+    b, c, t = xc.shape
     r = stage_radius(kernel_sizes, dilations)
-    tile = pick_tile(c, r)
-    xc = x.transpose(1, 2).contiguous()
-    out = torch.empty_like(xc)
-    w, vec = pack_stage_params(stage_params, x.device)
+    w, vec = packed
     ks = (ctypes.c_int * len(kernel_sizes))(*kernel_sizes)
     ds = (ctypes.c_int * len(dilations))(*dilations)
     taps = (ctypes.c_float * 24)(*[v for group in alias_free_taps() for v in group])
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(xc.device):
+        stream = torch.cuda.current_stream(xc.device).cuda_stream
         rc = _library().amp_stage_launch(
-            xc.data_ptr(), out.data_ptr(), w.data_ptr(), vec.data_ptr(), b, c, t, tile, r,
-            len(kernel_sizes), len(dilations), ks, ds, int(fast),
-            int(x.dtype == torch.bfloat16), taps, stream)
+            xc.data_ptr(), out.data_ptr(), w.data_ptr(), vec.data_ptr(), b, c, t,
+            pick_tile(c, r), r, len(kernel_sizes), len(dilations), ks, ds, int(fast),
+            int(xc.dtype == torch.bfloat16), taps, stream)
     if rc != 0:
         raise RuntimeError(f"amp_stage kernel launch failed: CUDA error {rc}")
-    LAUNCHES += 1
-    return out.transpose(1, 2)
+
+
+def _check_stage(x: torch.Tensor, stage_params, kernel_sizes, dilations, accum: str) -> None:
+    if accum not in ACCUM_MODES:
+        raise ValueError(f"accum must be one of {ACCUM_MODES}, got {accum!r}")
+    if x.dim() != 3:
+        raise ValueError(f"x must be (B, T, C), got shape {tuple(x.shape)}")
+    if any(k % 2 == 0 for k in kernel_sizes):
+        raise ValueError(f"kernel sizes must be odd, got {tuple(kernel_sizes)}")
+    if not (1 <= len(kernel_sizes) <= 4 and 1 <= len(dilations) <= 4):
+        raise ValueError("the kernel takes 1-4 resblocks of 1-4 sub-units")
+    pick_tile(x.shape[-1], stage_radius(kernel_sizes, dilations))  # raises if C too wide
+    check_stage_params(stage_params, kernel_sizes, dilations, x.shape[-1])
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused AMP stage runs on cuda or cpu, not {x.device}")
 
 
 def fused_amp_stage(x: torch.Tensor, stage_params: List[dict],
@@ -315,26 +334,66 @@ def fused_amp_stage(x: torch.Tensor, stage_params: List[dict],
     """(B, T, C) -> (B, T, C): one fused AMP stage, equal to the unfused
     stage everywhere including the first and last samples.
 
-    On a CUDA tensor this launches the sm_90a kernel or raises; on a CPU
-    tensor it runs the plain version. `accum` and `conv` are the JAX knobs,
-    accepted and validated: the kernel keeps every intermediate and sum in
-    f32 (error at or below the JAX "bf16" and "f32" modes), and one
-    formulation serves all three `conv` values, which the JAX package
-    measured to give the same numbers."""
-    if accum not in ACCUM_MODES:
-        raise ValueError(f"accum must be one of {ACCUM_MODES}, got {accum!r}")
+    On a CUDA tensor this launches the sm_90a kernel once for the whole
+    batch or raises; on a CPU tensor it runs the plain version. `accum` and
+    `conv` are the JAX knobs, accepted and validated: the kernel keeps every
+    intermediate and sum in f32 (error at or below the JAX "bf16" and "f32"
+    modes), and one formulation serves all three `conv` values, which the
+    JAX package measured to give the same numbers."""
+    global LAUNCHES
     if conv not in CONV_MODES:
         raise ValueError(f"conv must be one of {CONV_MODES}, got {conv!r}")
-    if x.dim() != 3:
-        raise ValueError(f"x must be (B, T, C), got shape {tuple(x.shape)}")
-    if any(k % 2 == 0 for k in kernel_sizes):
-        raise ValueError(f"kernel sizes must be odd, got {tuple(kernel_sizes)}")
-    if not (1 <= len(kernel_sizes) <= 4 and 1 <= len(dilations) <= 4):
-        raise ValueError("the kernel takes 1-4 resblocks of 1-4 sub-units")
-    pick_tile(x.shape[-1], stage_radius(kernel_sizes, dilations))  # raises if C too wide
-    check_stage_params(stage_params, kernel_sizes, dilations, x.shape[-1])
+    _check_stage(x, stage_params, kernel_sizes, dilations, accum)
     if x.device.type == "cpu":
         return fused_amp_stage_plain(x, stage_params, kernel_sizes, dilations, fast)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused AMP stage runs on cuda or cpu, not {x.device}")
-    return _launch(x, stage_params, kernel_sizes, dilations, fast)
+    xc = x.transpose(1, 2).contiguous()
+    out = torch.empty_like(xc)
+    _launch_cf(xc, out, pack_stage_params(stage_params, x.device), kernel_sizes, dilations, fast)
+    LAUNCHES += 1
+    return out.transpose(1, 2)
+
+
+def fused_amp_stage_tc(x: torch.Tensor, stage_params: List[dict],
+                       kernel_sizes: Sequence[int] = (3, 7, 11),
+                       dilations: Sequence[int] = (1, 3, 5), fast: bool = False,
+                       accum: str = "bf16") -> torch.Tensor:
+    """K2a, `audiolcm_tpu/nn/pallas_amp_stage.py:fused_amp_stage`: the same
+    stage with the TPU kernel's launch structure, one launch per batch
+    element, each on that element's own (T, C) -> (C, T) transpose. The
+    JAX `reference_fn` and `tile` are not taken: the kernel computes the
+    edges itself and masks a ragged last tile. CPU: the plain version."""
+    global LAUNCHES_TC
+    _check_stage(x, stage_params, kernel_sizes, dilations, accum)
+    if x.device.type == "cpu":
+        return fused_amp_stage_plain(x, stage_params, kernel_sizes, dilations, fast)
+    packed, outs = pack_stage_params(stage_params, x.device), []
+    for i in range(x.shape[0]):
+        xc = x[i:i + 1].transpose(1, 2).contiguous()
+        out = torch.empty_like(xc)
+        _launch_cf(xc, out, packed, kernel_sizes, dilations, fast)
+        LAUNCHES_TC += 1
+        outs.append(out.transpose(1, 2))
+    return torch.cat(outs)
+
+
+def fused_amp_stage_cl(x: torch.Tensor, stage_params: List[dict],
+                       kernel_sizes: Sequence[int] = (3, 7, 11),
+                       dilations: Sequence[int] = (1, 3, 5), fast: bool = False,
+                       accum: str = "bf16", conv: str = "tap") -> torch.Tensor:
+    """K2b, `audiolcm_tpu/nn/pallas_amp_stage.py:fused_amp_stage_cl`: the
+    channels-first form, one (B, T, C) -> (B, C, T) transpose for the batch
+    and then one launch per batch element on its (C, T) slice. conv="kstack"
+    is refused, as the JAX function refuses it. CPU: the plain version."""
+    global LAUNCHES_CL
+    if conv not in ("tap", "mstack"):
+        raise ValueError(f"fused_amp_stage_cl takes conv 'tap' or 'mstack', got {conv!r}")
+    _check_stage(x, stage_params, kernel_sizes, dilations, accum)
+    if x.device.type == "cpu":
+        return fused_amp_stage_plain(x, stage_params, kernel_sizes, dilations, fast)
+    xc = x.transpose(1, 2).contiguous()
+    out = torch.empty_like(xc)
+    packed = pack_stage_params(stage_params, x.device)
+    for i in range(x.shape[0]):
+        _launch_cf(xc[i:i + 1], out[i:i + 1], packed, kernel_sizes, dilations, fast)
+        LAUNCHES_CL += 1
+    return out.transpose(1, 2)

@@ -10,10 +10,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-FLASH_NOT_PORTED = (
-    "use_flash=True needs the flash-attention kernel, which is not ported yet "
-    "(ROADMAP.md, TPU kernels still to port: K3 nn/pallas_attention.py:flash_attention)"
-)
+from audiolcm_torch.nn.flash_attention import flash_attention
 
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -27,16 +24,23 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 class MultiHeadSelfAttention(nn.Module):
     """Self-attention over (B, T, C).
 
+    use_flash=True runs `nn/flash_attention.flash_attention`: the sm_90a
+    kernel on the card, and on the CPU its plain version (f32 logits and
+    P.V whatever the stream dtype), as the JAX package runs its Pallas
+    kernel in interpret mode off the TPU. It never falls back to the einsum
+    path.
+
     fuse_qkv=True runs the three projections as one (3*inner, C) matmul
-    under `to_qkv` (see `fuse_qkv_state_dict`); numerics-preserving."""
+    under `to_qkv` (see `fuse_qkv_state_dict`); numerics-preserving. The
+    head splits of its chunks are strided views, which the kernel reads in
+    place."""
 
     def __init__(self, dim: int, num_heads: int, head_dim: int,
                  use_flash: bool = False, fuse_qkv: bool = False):
         super().__init__()
-        if use_flash:
-            raise NotImplementedError(FLASH_NOT_PORTED)
         inner = num_heads * head_dim
-        self.num_heads, self.head_dim, self.fuse_qkv = num_heads, head_dim, fuse_qkv
+        self.num_heads, self.head_dim = num_heads, head_dim
+        self.use_flash, self.fuse_qkv = use_flash, fuse_qkv
         if fuse_qkv:
             self.to_qkv = nn.Linear(dim, 3 * inner, bias=False)
         else:
@@ -52,7 +56,8 @@ class MultiHeadSelfAttention(nn.Module):
         else:
             q, k, v = self.to_q(x), self.to_k(x), self.to_v(x)
         split = lambda a: a.reshape(b, t, self.num_heads, self.head_dim).transpose(1, 2)
-        out = dot_product_attention(split(q), split(k), split(v), self.head_dim**-0.5)
+        attend = flash_attention if self.use_flash else dot_product_attention
+        out = attend(split(q), split(k), split(v), self.head_dim**-0.5)
         return self.to_out(out.transpose(1, 2).reshape(b, t, -1))
 
 

@@ -3,6 +3,7 @@
     clap_ids (B,77), t5_ids (B,77)
       -> BERT+projection (B,77,1024) | T5 (B,77,1024)  -> (B,154,1024) context
       -> S LCM steps of ConcatDiT2MLP
+         (or, on the teacher path, 100 DDIM/PLMS steps with batch-doubled CFG)
       -> latent / scale_factor -> VAE decode -> mel (B,T,80)
       -> BigVGAN x256 upsample -> wav (B, 256*T)
 
@@ -19,7 +20,9 @@ from typing import Optional
 import torch
 
 from audiolcm_torch.convert import assign_state_dict, fold_weight_norms
+from audiolcm_torch.diffusion.ddim import DDIMConfig, ddim_sample
 from audiolcm_torch.diffusion.lcm import LCMConfig, lcm_sample
+from audiolcm_torch.diffusion.plms import plms_sample
 from audiolcm_torch.diffusion.schedule import NoiseSchedule
 from audiolcm_torch.models.bigvgan import BigVGAN
 from audiolcm_torch.models.clap_text import ClapTextEncoder, fuse_bert_state_dict
@@ -27,9 +30,6 @@ from audiolcm_torch.models.dit import ConcatDiT2MLP
 from audiolcm_torch.models.t5_encoder import T5Encoder, fuse_t5_state_dict
 from audiolcm_torch.models.vae1d import AutoencoderKL1D
 from audiolcm_torch.nn.attention import fuse_qkv_state_dict
-
-TEACHER_NOT_PORTED = ("generate_teacher (DDIM/PLMS teacher sampling) is not ported yet "
-                      "(ROADMAP.md queue 1, item 11)")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -170,5 +170,39 @@ class AudioLCMPipeline:
         context = self.encode_text_ids(clap_ids, t5_ids)
         return self.generate_from_context(context, latent_len, generator, x_T, noise)
 
-    def generate_teacher(self, *args, **kwargs):
-        raise NotImplementedError(TEACHER_NOT_PORTED)
+    def sample_latent_teacher(self, context: torch.Tensor, uncond: torch.Tensor,
+                              latent_len: int, num_steps: int = 100,
+                              guidance_scale: float = 5.0, use_plms: bool = False,
+                              generator=None, x_T=None, noise=None) -> torch.Tensor:
+        """DDIM (or PLMS) over the pipeline's DiT with batch-doubled CFG; the
+        DiT runs in compute_dtype, the sampler state in f32."""
+        dit = self.modules.dit
+
+        def denoise_fn(x, t, ctx):
+            return dit(x.to(self.compute_dtype), t, ctx, None).to(torch.float32)
+
+        shape = (context.shape[0], latent_len, dit.in_channels)
+        sampler = plms_sample if use_plms else ddim_sample
+        return sampler(denoise_fn, self.schedule, shape, context, uncond,
+                       DDIMConfig(num_steps=num_steps, guidance_scale=guidance_scale),
+                       x_T=x_T, noise=noise, generator=generator, device=self.device)
+
+    @torch.inference_mode()
+    def generate_teacher(self, context: torch.Tensor, uncond: torch.Tensor,
+                         latent_len: Optional[int] = None, num_steps: int = 100,
+                         guidance_scale: float = 5.0, use_plms: bool = False,
+                         generator: Optional[torch.Generator] = None,
+                         x_T: Optional[torch.Tensor] = None,
+                         noise: Optional[torch.Tensor] = None):
+        """Teacher path (`scripts/txt2audio_for_2cap.py:227-229`): context
+        (B, 2L, d) and uncond (1 or B, 2L, d) -> (wav, mel), both f32. It runs
+        the pipeline's DiT, the student when the checkpoint has one, as the
+        JAX package does. x_T and noise (DDIM: (S, *shape); PLMS:
+        (S, 2, *shape)) replace the draws from `generator`."""
+        latent_len = latent_len or self.default_latent_len
+        z = self.sample_latent_teacher(context.to(self.device), uncond.to(self.device),
+                                       latent_len, num_steps, guidance_scale, use_plms,
+                                       self._generator(generator), x_T, noise)
+        mel = self.decode_latent(z)
+        wav = self.vocode(mel)
+        return wav.float(), mel.float()

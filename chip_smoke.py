@@ -6,17 +6,24 @@
 
 Phases, one JSON line each; any failure raises and exits non-zero:
   1. card     — device name and count, nvidia-smi name and power limit
-  2. build    — every csrc/*.cu compiled with nvcc for sm_90a (ptxas stats)
+  2. build    — every csrc/*.cu compiled with nvcc for sm_90a, one nvcc per
+                source, all started together (ptxas stats)
   3. check    — each kernel against its plain PyTorch version on the card at
-                the main path's shapes (f32 with TF32 off, and bf16)
-  4. time     — each kernel, its plain version and the bound, batch 8 bf16;
-                the unfused vocoder's two alias-free activation forms at
-                every stage width
-  5. generate — the serving pipeline at full width (random weights from a
-                seed): batch 1 f32 with the fused stage against the unfused
-                vocoder (before the final tanh); then the batch-8 10 s
-                generate with the launch counts of the main path, ms per
+                the main paths' shapes (f32 with TF32 off, and bf16): the AMP
+                stage K1 and its per-item forms K2a/K2b, flash attention K3
+  4. time     — each kernel, its plain version, the bound and (K3) the
+                library call, bf16; the unfused vocoder's two alias-free
+                activation forms at every stage width
+  5. generate — the LCM serving pipeline at full width (random weights from
+                a seed): batch 1 f32 with the fused stage against the
+                unfused vocoder (before the final tanh); then the batch-8
+                10 s generate with the launch counts of its path, ms per
                 generate, x realtime and a per-layer breakdown
+  6. teacher  — one full-width DiT forward at CFG batch 4 in f32, flash
+                against einsum attention; then the teacher path: batch-8
+                10 s DDIM-100 generate with guidance 5 and flash attention
+                (DiT batch 16), its launch counts, ms, breakdown and
+                profile, and a PLMS-25 generate's launch counts
 then the kernels line and, last, the device line.
 """
 
@@ -33,6 +40,9 @@ import torch
 KS, DS = (3, 7, 11), (1, 3, 5)
 F32_TOL = 1e-4  # f32 kernel vs plain: same math, sums in another order
 WAV_TOL = 1e-4  # batch-1 f32 pre-tanh waveform, fused stage vs unfused vocoder
+FLASH_TOL = 2e-5  # K3 f32 vs plain: the JAX bar (tests/test_pallas_attention.py:26)
+DIT_TOL = 1e-4  # f32 DiT eps, flash vs einsum: attention sums in another order, 4 blocks
+GUIDANCE = 5.0
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 rate (published peak, 700 W)
 HBM = 3.35e12  # H100 SXM memory rate, bytes/s
 
@@ -183,6 +193,121 @@ def act_forms_phase(device, card: dict) -> list:
     return rows
 
 
+def check_k2_phase(device, shapes, rehearsal: bool) -> list:
+    """K2a (fused_amp_stage_tc) and K2b (fused_amp_stage_cl), one launch of
+    the K1 kernel per batch element, against the plain version: batch 2,
+    f32 max abs error and bf16 mean error as in check_phase."""
+    from audiolcm_torch.nn import amp_stage as A
+
+    rows = []
+    for c, t in shapes:
+        sp = stage_params(c, seed=c + 1, device=device)
+        x = torch.randn(2, c, t, generator=torch.Generator(device).manual_seed(t + 1),
+                        device=device).transpose(1, 2)
+        plain = A.fused_amp_stage_plain(x, sp, KS, DS, True)
+        spb, xb = cast(sp, torch.bfloat16), x.bfloat16()
+        perr = (A.fused_amp_stage_plain(xb, spb, KS, DS, True).float() - plain).abs().mean().item()
+        for name, fn in (("amp_stage_tc", A.fused_amp_stage_tc),
+                         ("amp_stage_cl", A.fused_amp_stage_cl)):
+            err = (fn(x, sp, KS, DS, fast=True) - plain).abs().max().item()
+            kerr = (fn(xb, spb, KS, DS, fast=True).float() - plain).abs().mean().item()
+            sync(device)
+            row = {"kernel": name, "C": c, "T": t, "batch": 2, "f32_max_abs_err": err,
+                   "f32_tol": F32_TOL, "bf16_mean_err": kerr, "plain_bf16_mean_err": perr}
+            emit({"phase": "check", **row})
+            if not (err <= F32_TOL and kerr <= perr * 1.02):
+                raise AssertionError(f"{name} disagrees with the plain version: {row}")
+            rows.append(row)
+    return rows
+
+
+def flash_inputs(shape, device, qkv_views: bool, seed: int):
+    """q, k, v (B, H, T, D) f32: independent draws in the DiT's head-split
+    layout ((B, T, H, D) storage), or chunk views of one to_qkv output."""
+    b, h, t, d = shape
+    g = torch.Generator(device).manual_seed(seed)
+    if qkv_views:
+        qkv = torch.randn(b, t, 3 * h * d, generator=g, device=device)
+        return [a.reshape(b, t, h, d).transpose(1, 2) for a in qkv.chunk(3, dim=-1)]
+    return [torch.randn(b, t, h, d, generator=g, device=device).transpose(1, 2)
+            for _ in range(3)]
+
+
+def check_flash_phase(device, cases) -> list:
+    """K3 against its plain version: f32 max abs error <= FLASH_TOL, and the
+    bf16 mean error against the f32 plain result at most 1.02x the plain
+    bf16 path's."""
+    from audiolcm_torch.nn import flash_attention as FA
+
+    rows = []
+    for i, (shape, views) in enumerate(cases):
+        q, k, v = flash_inputs(shape, device, views, seed=100 + i)
+        scale = shape[-1] ** -0.5
+        plain = FA.flash_attention_plain(q, k, v, scale)
+        err = (FA.flash_attention(q, k, v, scale) - plain).abs().max().item()
+        qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
+        kerr = (FA.flash_attention(qb, kb, vb, scale).float() - plain).abs().mean().item()
+        perr = (FA.flash_attention_plain(qb, kb, vb, scale).float() - plain).abs().mean().item()
+        sync(device)
+        row = {"kernel": "flash_attention", "shape": list(shape), "qkv_chunk_views": views,
+               "f32_max_abs_err": err, "f32_tol": FLASH_TOL, "bf16_mean_err": kerr,
+               "plain_bf16_mean_err": perr}
+        emit({"phase": "check", **row})
+        if not (err <= FLASH_TOL and kerr <= perr * 1.02):
+            raise AssertionError(f"flash_attention disagrees with its plain version: {row}")
+        rows.append(row)
+    return rows
+
+
+def time_k2_phase(device, shapes, card: dict) -> dict:
+    """K2a and K2b at batch 8, bf16, fast snake (8 launches per call)."""
+    from audiolcm_torch.nn import amp_stage as A
+
+    out = {}
+    for c, t in shapes:
+        sp = cast(stage_params(c, seed=c, device=device), torch.bfloat16)
+        x = torch.randn(8, c, t, device=device, dtype=torch.bfloat16).transpose(1, 2)
+        for name, fn in (("amp_stage_tc", A.fused_amp_stage_tc),
+                         ("amp_stage_cl", A.fused_amp_stage_cl)):
+            ms = event_ms(lambda: fn(x, sp, KS, DS, fast=True), iters=3)
+            emit({"phase": "time", "kernel": name, "C": c, "T": t, "batch": 8, "ms": ms,
+                  "card": card["nvidia_smi"]})
+            out[(name, c, t)] = ms
+    return out
+
+
+def flash_bound_ms(b: int, h: int, t: int, d: int, elem_bytes: int) -> tuple:
+    """Least time for one attention: q, k, v read once and the output written
+    once over the HBM rate, vs 4*B*H*T^2*D FLOP (two T x T x D products)
+    over the bf16 peak."""
+    t_bytes = 4 * b * h * t * d * elem_bytes / HBM
+    t_ops = 4 * b * h * t * t * d / PEAK_BF16
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations"
+
+
+def time_flash_phase(device, shape, card: dict) -> dict:
+    """K3 at the teacher's DiT shape in bf16 (CUDA events, inputs in the
+    DiT's head-split layout): the kernel, its plain version, the library's
+    scaled_dot_product_attention (a yardstick only: the port never calls
+    it) and the bound."""
+    import torch.nn.functional as F
+
+    from audiolcm_torch.nn import flash_attention as FA
+
+    q, k, v = (a.bfloat16() for a in flash_inputs(shape, device, False, seed=7))
+    scale = shape[-1] ** -0.5
+    row = {"shape": list(shape), "dtype": "bfloat16",
+           "ms": event_ms(lambda: FA.flash_attention(q, k, v, scale), iters=50, warmup=3),
+           "plain_ms": event_ms(lambda: FA.flash_attention_plain(q, k, v, scale), iters=20,
+                                warmup=2),
+           "library_ms": event_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
+                                  iters=50, warmup=3)}
+    row["bound_ms"], row["bound_by"] = flash_bound_ms(*shape, 2)
+    row["card"] = card["nvidia_smi"]
+    emit({"phase": "time", "kernel": "flash_attention", **row})
+    return row
+
+
 def init_random_(module: torch.nn.Module, gen: torch.Generator) -> None:
     """Fan-in-scaled normal weights, norm scales ~1, small biases and
     log-scale snake parameters: finite activations at every width. The
@@ -230,15 +355,42 @@ def build_modules(device, full: bool):
     return mods
 
 
-def generate_phase(device, full: bool, card: dict) -> dict:
+def reset_counts() -> None:
     from audiolcm_torch.nn import amp_stage as A
+    from audiolcm_torch.nn import flash_attention as FA
+
+    A.LAUNCHES = A.LAUNCHES_TC = A.LAUNCHES_CL = FA.LAUNCHES = 0
+
+
+def read_counts() -> dict:
+    from audiolcm_torch.nn import amp_stage as A
+    from audiolcm_torch.nn import flash_attention as FA
+
+    return {"amp_stage": A.LAUNCHES, "amp_stage_tc": A.LAUNCHES_TC,
+            "amp_stage_cl": A.LAUNCHES_CL, "flash_attention": FA.LAUNCHES}
+
+
+def set_flash(dit: torch.nn.Module, on: bool) -> None:
+    """Switch every self-attention of the DiT between the flash path and the
+    einsum path (the module reads use_flash at each forward)."""
+    from audiolcm_torch.nn.attention import MultiHeadSelfAttention
+
+    for m in dit.modules():
+        if isinstance(m, MultiHeadSelfAttention):
+            m.use_flash = on
+
+
+def token_ids(mods, batch: int, tok: int, seed: int) -> list:
+    vocab = (mods.clap_text.config.vocab_size, mods.t5.config.vocab_size)
+    return [torch.randint(0, v, (batch, tok), generator=torch.Generator().manual_seed(seed + i))
+            for i, v in enumerate(vocab)]
+
+
+def generate_phase(device, mods, full: bool, card: dict) -> dict:
     from audiolcm_torch.pipeline import AudioLCMPipeline
 
     batch, latent, tok = (8, 312, 77) if full else (2, 16, 77)
-    mods = build_modules(device, full)
-    vocab = (mods.clap_text.config.vocab_size, mods.t5.config.vocab_size)
-    ids = [torch.randint(0, v, (batch, tok), generator=torch.Generator().manual_seed(i))
-           for i, v in enumerate(vocab)]
+    ids = token_ids(mods, batch, tok, seed=0)
 
     # batch 1, f32: the fused stage against the unfused vocoder, compared
     # before the final tanh so that no saturation hides a difference
@@ -264,14 +416,16 @@ def generate_phase(device, full: bool, card: dict) -> dict:
     gen = torch.Generator(device).manual_seed(2)
     pipe.generate(ids[0], ids[1], latent, generator=gen)  # warm-up
     sync(device)
-    A.LAUNCHES = 0
+    reset_counts()
     wav, mel = pipe.generate(ids[0], ids[1], latent, generator=gen)
     sync(device)
-    launches = {"amp_stage": A.LAUNCHES}
+    launches = read_counts()
     expect = (batch, latent * 2 * 256)
+    on_card = device.type == "cuda"
     ok = (tuple(wav.shape) == expect and bool(torch.isfinite(wav).all())
           and wav.abs().max().item() <= 1.0
-          and launches["amp_stage"] == (2 if device.type == "cuda" else 0))
+          and launches == {"amp_stage": 2 if on_card else 0, "amp_stage_tc": 0,
+                           "amp_stage_cl": 0, "flash_attention": 0})
     row = {"batch": batch, "wav_shape": list(wav.shape), "mel_shape": list(mel.shape),
            "finite": bool(torch.isfinite(wav).all()), "wav_abs_max": wav.abs().max().item(),
            "wav_std": wav.std().item(),
@@ -289,9 +443,20 @@ def generate_phase(device, full: bool, card: dict) -> dict:
         row.update(ms_per_generate=ms, x_realtime=batch * expect[1] / 16000 / (ms / 1e3),
                    peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, card=card["nvidia_smi"])
         row["breakdown_ms"] = layer_breakdown(pipe, ids, latent, gen)
-        row["profile"] = profile_generate(pipe, ids, latent, gen, ms)
+        row["profile"] = profile_run(lambda: pipe.generate(ids[0], ids[1], latent, generator=gen),
+                                     ms)
     else:
         row.update(ms_per_generate="not measured", x_realtime="not measured")
+    # the same LCM generate with use_flash=True: its flash launches only
+    set_flash(pipe.modules.dit, True)
+    reset_counts()
+    pipe.generate(ids[0], ids[1], latent, generator=gen)
+    sync(device)
+    row["launches_with_flash"] = read_counts()
+    set_flash(pipe.modules.dit, False)
+    n_flash = 2 * len(pipe.modules.dit.blocks) * 2 if on_card else 0  # 2 LCM steps
+    if row["launches_with_flash"]["flash_attention"] != n_flash:
+        raise AssertionError(f"LCM generate with flash: {row['launches_with_flash']}")
     emit({"phase": "generate", **row})
     return row
 
@@ -314,14 +479,14 @@ def layer_breakdown(pipe, ids, latent: int, gen) -> dict:
     return out
 
 
-def profile_generate(pipe, ids, latent: int, gen, wall_ms: float, top: int = 8) -> dict:
-    """torch.profiler over one batch-8 generate: device busy time, idle share
-    against the host-clock ms per generate, and the kernels that take most
-    of the device time."""
+def profile_run(run, wall_ms: float, top: int = 8) -> dict:
+    """torch.profiler over one call of run() (a generate): device busy time,
+    idle share against the host-clock ms of that generate, and the kernels
+    that take most of the device time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        pipe.generate(ids[0], ids[1], latent, generator=gen)
+        run()
         torch.cuda.synchronize()
     self_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
     # device-side events only (kernels, copies); aten ops repeat their time
@@ -333,6 +498,184 @@ def profile_generate(pipe, ids, latent: int, gen, wall_ms: float, top: int = 8) 
             "idle_share": (1.0 - busy_ms / wall_ms) if busy_ms else "not measured",
             "top_kernels": [{"name": e.key[:90], "ms": self_us(e) / 1e3, "calls": e.count,
                              "share": self_us(e) / 1e3 / busy_ms} for e in events[:top]]}
+
+
+def dit_kwargs(full: bool) -> dict:
+    """The shipped ConcatDiT2MLP (configs/audiolcm.yaml, configs/teacher.yaml)
+    or the rehearsal's tiny one."""
+    return {} if full else dict(context_dim=32, hidden_size=32, depth=1, num_heads=4)
+
+
+def teacher_check_phase(device, full: bool) -> dict:
+    """One DiT forward at batch 2 with CFG doubling (B = 4, T = 1 + 154 +
+    312 = 467 at full width), f32 with TF32 off: use_flash=True against
+    use_flash=False, max abs error of eps against DIT_TOL."""
+    from audiolcm_torch.models.dit import ConcatDiT2MLP
+
+    latent = 312 if full else 16
+    with torch.device(device):
+        dit = ConcatDiT2MLP(**dit_kwargs(full)).eval()
+    init_random_(dit, torch.Generator(device).manual_seed(3))
+    g = torch.Generator(device).manual_seed(5)
+    x = torch.randn(2, latent, dit.in_channels, generator=g, device=device)
+    ctx = torch.randn(2, 154, dit.context_dim, generator=g, device=device)
+    uc = torch.randn(1, 154, dit.context_dim, generator=g, device=device)
+    x2, c2 = torch.cat([x, x]), torch.cat([uc.expand_as(ctx), ctx])
+    t2 = torch.tensor([999, 500, 999, 500], dtype=torch.int32, device=device)
+    with torch.inference_mode():
+        eps = {}
+        for flash in (False, True):
+            set_flash(dit, flash)
+            eps[flash] = dit(x2, t2, c2, None)
+    sync(device)
+    err = (eps[True] - eps[False]).abs().max().item()
+    row = {"batch": 2, "dit_batch": 4, "seq": 1 + 154 + latent, "dtype": "float32",
+           "flash_vs_einsum_eps_max_abs": err, "tol": DIT_TOL,
+           "eps_abs_max": eps[False].abs().max().item()}
+    emit({"phase": "teacher_f32_check", **row})
+    if not err <= DIT_TOL:
+        raise AssertionError(f"DiT eps with flash attention vs einsum: {row}")
+    return row
+
+
+def teacher_generate(pipe, ids, uc_ids, latent: int, gen, steps: int = 100,
+                     use_plms: bool = False):
+    """What the CLI's --teacher path runs for one batch: prompt and uncond
+    contexts from token ids, then DDIM (or PLMS) with guidance 5."""
+    with torch.inference_mode():
+        ctx = pipe.encode_text_ids(ids[0], ids[1])
+        uc = pipe.encode_text_ids(uc_ids[0], uc_ids[1])
+    return pipe.generate_teacher(ctx, uc, latent, num_steps=steps, guidance_scale=GUIDANCE,
+                                 use_plms=use_plms, generator=gen)
+
+
+def teacher_phase(device, mods, full: bool, card: dict) -> dict:
+    """The teacher path at full width: batch 8 (DiT batch 16 under CFG),
+    10 s clips, bf16, DDIM 100 steps with flash attention, the serving
+    vocoder (fused stages at C <= 48)."""
+    from audiolcm_torch.diffusion.ddim import make_ddim_timesteps
+    from audiolcm_torch.pipeline import AudioLCMPipeline
+
+    batch, latent, tok = (8, 312, 77) if full else (2, 16, 77)
+    ids, uc_ids = token_ids(mods, batch, tok, seed=0), token_ids(mods, 1, tok, seed=10)
+    set_flash(mods.dit, True)
+    pipe = AudioLCMPipeline(mods, compute_dtype=torch.bfloat16, device=device)
+    gen = torch.Generator(device).manual_seed(4)
+    run = lambda steps=100, plms=False: teacher_generate(pipe, ids, uc_ids, latent, gen, steps,
+                                                         plms)
+    run()  # warm-up
+    sync(device)
+    reset_counts()
+    wav, mel = run()
+    sync(device)
+    launches = read_counts()
+    on_card = device.type == "cuda"
+    n_attn = 2 * len(mods.dit.blocks)  # self-attentions per DiT forward
+    n_steps = len(make_ddim_timesteps(100))
+    expect = (batch, latent * 2 * 256)
+    row = {"batch": batch, "dit_batch": 2 * batch, "sampler": "ddim", "steps": n_steps,
+           "guidance": GUIDANCE, "wav_shape": list(wav.shape), "mel_shape": list(mel.shape),
+           "finite": bool(torch.isfinite(wav).all()), "wav_abs_max": wav.abs().max().item(),
+           "wav_std": wav.std().item(), "launches": launches}
+    want = {"amp_stage": 2 if on_card else 0, "amp_stage_tc": 0, "amp_stage_cl": 0,
+            "flash_attention": n_attn * n_steps if on_card else 0}
+    if not (tuple(wav.shape) == expect and row["finite"] and row["wav_abs_max"] <= 1.0
+            and launches == want):
+        emit({"phase": "teacher", **row})
+        raise AssertionError(f"teacher path check failed: {row}, launches expected {want}")
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+        iters = 2
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            run()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / iters
+        row.update(ms_per_generate=ms, x_realtime=batch * expect[1] / 16000 / (ms / 1e3),
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, card=card["nvidia_smi"])
+        row["breakdown_ms"] = teacher_breakdown(pipe, ids, uc_ids, latent, gen)
+        row["profile"] = profile_run(run, ms)
+    else:
+        row.update(ms_per_generate="not measured", x_realtime="not measured")
+    # PLMS, 25 steps: one more DiT forward at step 0
+    reset_counts()
+    t0 = time.perf_counter()
+    wav, _ = run(25, True)
+    sync(device)
+    plms = {"steps": 25, "launches": read_counts(), "finite": bool(torch.isfinite(wav).all())}
+    if on_card:
+        plms["ms_one_generate"] = 1e3 * (time.perf_counter() - t0)
+    row["plms"] = plms
+    n_plms = n_attn * (len(make_ddim_timesteps(25)) + 1) if on_card else 0
+    if not (plms["finite"] and plms["launches"]["flash_attention"] == n_plms):
+        emit({"phase": "teacher", **row})
+        raise AssertionError(f"PLMS-25 check failed: {plms}, flash launches expected {n_plms}")
+    set_flash(mods.dit, False)
+    emit({"phase": "teacher", **row})
+    return row
+
+
+def teacher_breakdown(pipe, ids, uc_ids, latent: int, gen) -> dict:
+    """CUDA-event ms of each layer of one batch-8 teacher generate; the
+    DiT's 100 steps with flash attention and again with einsum attention."""
+    out = {}
+    with torch.inference_mode():
+        towers = lambda: (pipe.encode_text_ids(*ids), pipe.encode_text_ids(*uc_ids))
+        ctx, uc = towers()
+        out["text_towers_prompt_and_uncond"] = event_ms(towers, 3)
+        sample = lambda: pipe.sample_latent_teacher(ctx, uc, latent, 100, GUIDANCE, False, gen)
+        out["dit_ddim_100_steps_flash"] = event_ms(sample, 1)
+        set_flash(pipe.modules.dit, False)
+        out["dit_ddim_100_steps_einsum"] = event_ms(sample, 1)
+        set_flash(pipe.modules.dit, True)
+        z = sample()
+        out["vae_decode"] = event_ms(lambda: pipe.decode_latent(z), 3)
+        mel = pipe.decode_latent(z)
+        out["vocoder"] = event_ms(lambda: pipe.vocode(mel), 3)
+    return out
+
+
+def kernels_line(checks, k2_checks, flash_checks, times, k2_times, flash_time, gen_row,
+                 teacher_row) -> dict:
+    """One entry per kernel: launches on its path (K1: the LCM generate;
+    K3: the teacher generate; K2a/K2b lie on neither), the largest f32 error
+    of its checks, and this run's times (K1/K2: both fused stages of one
+    batch-8 generate, summed; K3: one launch at the teacher's shape)."""
+    measured = bool(times)
+    nm = "not measured"
+    stage_shapes = sorted({(r["C"], r["T"]) for r in times.values()}, reverse=True)
+    k1_sum = lambda key: sum(times[s][key] for s in stage_shapes) if measured else nm
+    widest = max(times.values(), key=lambda r: r["bound_ms"]) if measured else {}
+    common = {"route": "cuda", "source": "audiolcm_torch/csrc/amp_stage.cu",
+              "plain_ms": k1_sum("plain_ms"), "bound_ms": k1_sum("bound_ms"),
+              "bound_by": widest.get("bound_by", nm), "library_ms": None,
+              "library_note": "no single PyTorch call computes a fused AMP stage"}
+    out = [{"name": "amp_stage",
+            "replaces": "audiolcm_tpu/nn/pallas_amp_stage.py:665 fused_amp_stage_cl_batched",
+            "launches": gen_row["launches"]["amp_stage"],
+            "max_abs_err": max(r["f32_max_abs_err"] for r in checks),
+            "ms": k1_sum("ms"), **common,
+            "per_shape": [times[s] for s in stage_shapes]}]
+    for name, site in (("amp_stage_tc", "audiolcm_tpu/nn/pallas_amp_stage.py:477 fused_amp_stage"),
+                       ("amp_stage_cl",
+                        "audiolcm_tpu/nn/pallas_amp_stage.py:566 fused_amp_stage_cl")):
+        out.append({"name": name, "replaces": site,
+                    "launches": teacher_row["launches"][name],
+                    "max_abs_err": max(r["f32_max_abs_err"] for r in k2_checks
+                                       if r["kernel"] == name),
+                    "ms": sum(k2_times[(name, *s)] for s in stage_shapes) if measured else nm,
+                    **common})
+    out.append({"name": "flash_attention", "route": "cuda",
+                "source": "audiolcm_torch/csrc/flash_attention.cu",
+                "replaces": "audiolcm_tpu/nn/pallas_attention.py:72 flash_attention",
+                "launches": teacher_row["launches"]["flash_attention"],
+                "max_abs_err": max(r["f32_max_abs_err"] for r in flash_checks),
+                **{k: flash_time.get(k, nm) for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                      "library_ms")},
+                "shape": flash_time.get("shape", nm),
+                "launches_plms_25": teacher_row["plms"]["launches"]["flash_attention"],
+                "launches_lcm_with_flash": gen_row["launches_with_flash"]["flash_attention"]})
+    return {"kernels": out}
 
 
 def main(argv=None) -> int:
@@ -355,22 +698,25 @@ def main(argv=None) -> int:
         emit({"phase": "build", **build_phase()})
     shapes = [(48, 79872), (24, 159744), (48, 79872 - 77)] if not rehearsal else [(6, 700)]
     checks = check_phase(device, shapes, rehearsal)
-    times = time_phase(device, shapes[:2], card) if not rehearsal else {}
+    k2_checks = check_k2_phase(device, shapes[:2], rehearsal)
+    # the teacher's DiT attention (CFG batch 16, T = 467), the longest DiT
+    # sequence (max_len 1000), a short head, and the chunk views of to_qkv
+    flash_cases = ([((16, 8, 467, 72), False), ((2, 8, 1000, 72), False),
+                    ((1, 2, 100, 8), False), ((16, 8, 467, 72), True)]
+                   if not rehearsal else [((2, 2, 37, 8), False), ((2, 2, 37, 8), True)])
+    flash_checks = check_flash_phase(device, flash_cases)
+    times, k2_times, flash_time = {}, {}, {}
     if not rehearsal:
+        times = time_phase(device, shapes[:2], card)
+        k2_times = time_k2_phase(device, shapes[:2], card)
+        flash_time = time_flash_phase(device, (16, 8, 467, 72), card)
         act_forms_phase(device, card)
-    gen_row = generate_phase(device, full=not rehearsal, card=card)
-    main_shapes = shapes[:2]
-    widest = max(times.values(), key=lambda r: r["bound_ms"]) if times else {}
-    emit({"kernels": [{
-        "name": "amp_stage", "route": "cuda", "source": "audiolcm_torch/csrc/amp_stage.cu",
-        "replaces": "audiolcm_tpu/nn/pallas_amp_stage.py:665 fused_amp_stage_cl_batched",
-        "launches": gen_row["launches"]["amp_stage"],
-        "max_abs_err": max(r["f32_max_abs_err"] for r in checks),
-        "ms": sum(times[s]["ms"] for s in main_shapes) if times else "not measured",
-        "plain_ms": sum(times[s]["plain_ms"] for s in main_shapes) if times else "not measured",
-        "bound_ms": sum(times[s]["bound_ms"] for s in main_shapes) if times else "not measured",
-        "bound_by": widest.get("bound_by", "not measured"), "library_ms": None,
-        "per_shape": [times[s] for s in main_shapes] if times else []}]})
+    mods = build_modules(device, full=not rehearsal)
+    gen_row = generate_phase(device, mods, full=not rehearsal, card=card)
+    teacher_check_phase(device, full=not rehearsal)
+    teacher_row = teacher_phase(device, mods, full=not rehearsal, card=card)
+    emit(kernels_line(checks, k2_checks, flash_checks, times, k2_times, flash_time, gen_row,
+                      teacher_row))
     if rehearsal:
         emit({"rehearsal": True, "ok": True})
         return 0

@@ -175,6 +175,25 @@ def test_bf16_error_not_worse_than_unfused_bf16(stage_2048):
     assert err(A.fused_amp_stage(xb, spb, KS, DS)) <= unfused_err * 1.02
 
 
+@pytest.mark.parametrize("form", ["tc", "cl"])
+def test_per_item_forms_match_jax(stage_2048, form):
+    """K2a (fused_amp_stage_tc) and K2b (fused_amp_stage_cl) against the JAX
+    fused_amp_stage / fused_amp_stage_cl in interpret mode, tile 512 over
+    T = 2048 (4 tiles, so JAX takes its kernel, not _fallback); on the CPU
+    the port's wrappers run the plain version and launch nothing."""
+    x, trees, golden, _ = stage_2048
+    jax_fn = P.fused_amp_stage if form == "tc" else P.fused_amp_stage_cl
+    ref = jax_golden(lambda v: jax_fn(v, jax_stage_params(trees), KS, DS,
+                                      reference_fn=lambda xb: jax_unfused(xb, trees), tile=512,
+                                      interpret=True), x)
+    port = A.fused_amp_stage_tc if form == "tc" else A.fused_amp_stage_cl
+    A.LAUNCHES_TC = A.LAUNCHES_CL = 0
+    out = port(torch.from_numpy(x), torch_stage_params(trees), KS, DS).numpy()
+    assert A.LAUNCHES_TC == A.LAUNCHES_CL == 0
+    np.testing.assert_allclose(out, ref, atol=2e-5)
+    np.testing.assert_allclose(out, golden, atol=2e-5)
+
+
 def test_wrapper_dispatch_and_validation(stage_2048):
     x, trees, _, _ = stage_2048
     xt, sp = torch.from_numpy(x), torch_stage_params(trees)
@@ -195,6 +214,10 @@ def test_wrapper_dispatch_and_validation(stage_2048):
         A.fused_amp_stage(xt, sp[:2], KS, DS)
     with pytest.raises(ValueError, match="cuda or cpu"):
         A.fused_amp_stage(xt.to("meta"), sp, KS, DS)
+    with pytest.raises(ValueError, match="conv 'tap' or 'mstack'"):
+        A.fused_amp_stage_cl(xt, sp, KS, DS, conv="kstack")
+    with pytest.raises(ValueError, match="accum"):
+        A.fused_amp_stage_tc(xt, sp, KS, DS, accum="f16")
 
 
 def test_pick_tile_fits_shared_memory():
@@ -217,7 +240,8 @@ def cuda_device():
 def test_kernel_matches_plain_on_card(cuda_device, c, t):
     """The sm_90a kernel against the plain version on the card (f32, TF32
     off; atol 1e-4: f32 sums in another order over 18 convs), and in bf16
-    against the f32 plain result, no worse than the plain bf16 path x1.02."""
+    against the f32 plain result, no worse than the plain bf16 path x1.02;
+    K2a/K2b (one launch per batch element) in f32 too."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     trees = make_params(6, c)
@@ -231,6 +255,8 @@ def test_kernel_matches_plain_on_card(cuda_device, c, t):
         torch.cuda.synchronize()
         assert A.LAUNCHES == before + 1
         assert (out - plain).abs().max().item() < 1e-4
+        for per_item in (A.fused_amp_stage_tc, A.fused_amp_stage_cl):
+            assert (per_item(x, sp, KS, DS, fast=fast) - plain).abs().max().item() < 1e-4
         spb = [{"sub": [{k: v.bfloat16() for k, v in s.items()} for s in blk["sub"]]} for blk in sp]
         kb = A.fused_amp_stage(x.bfloat16(), spb, KS, DS, fast=fast).float()
         pb = A.fused_amp_stage_plain(x.bfloat16(), spb, KS, DS, fast).float()

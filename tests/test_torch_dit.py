@@ -39,15 +39,19 @@ def _torch_dit(sd, **kw):
     return mod.eval()
 
 
+@pytest.mark.parametrize("use_flash", [False, True])
 @pytest.mark.parametrize("fuse_qkv", [False, True])
-def test_dit_matches_jax(rng, dit_sd, fuse_qkv):
+def test_dit_matches_jax(rng, dit_sd, fuse_qkv, use_flash):
+    """use_flash=True on both sides: the JAX Pallas kernel in interpret
+    mode, the port's flash path (its plain version on the CPU)."""
     x, ts, ctx, w = _inputs(rng)
     jparams = convert_dit(dit_sd, depth=DEPTH)
     if fuse_qkv:
         jparams = fuse_attention_params(jparams)
-    golden = JaxDiT(IN_CH, CTX, HIDDEN, DEPTH, HEADS, MAX_LEN, fuse_qkv=fuse_qkv).apply(
+    golden = JaxDiT(IN_CH, CTX, HIDDEN, DEPTH, HEADS, MAX_LEN, use_flash=use_flash,
+                    fuse_qkv=fuse_qkv).apply(
         {"params": jparams}, jnp.asarray(x), jnp.asarray(ts), jnp.asarray(ctx), jnp.asarray(w))
-    mod = _torch_dit(dit_sd, fuse_qkv=fuse_qkv)
+    mod = _torch_dit(dit_sd, fuse_qkv=fuse_qkv, use_flash=use_flash)
     with torch.no_grad():
         out = mod(torch.from_numpy(x), torch.from_numpy(ts), torch.from_numpy(ctx),
                   torch.from_numpy(w))
@@ -66,7 +70,3 @@ def test_dit_bf16_stream_stays_bf16(rng, dit_sd):
     assert out.dtype == torch.bfloat16
     assert torch.isfinite(out.float()).all()
 
-
-def test_dit_use_flash_raises():
-    with pytest.raises(NotImplementedError, match="K3"):
-        TorchDiT(IN_CH, CTX, HIDDEN, DEPTH, HEADS, MAX_LEN, use_flash=True)

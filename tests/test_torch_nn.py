@@ -50,8 +50,12 @@ def test_timestep_and_guidance_embeddings():
         _np(j_emb.guidance_scale_embedding(jnp.asarray(w), 256)), atol=1e-3)
 
 
+@pytest.mark.parametrize("use_flash", [False, True])
 @pytest.mark.parametrize("fuse_qkv", [False, True])
-def test_self_attention(rng, fuse_qkv):
+def test_self_attention(rng, fuse_qkv, use_flash):
+    """use_flash=True: the JAX Pallas kernel in interpret mode against the
+    port's flash path (its plain version on the CPU), with the chunk views
+    of the fused projection under fuse_qkv."""
     b, t, c, heads, hd = 2, 9, 16, 4, 4
     inner = heads * hd
     x = rng.standard_normal((b, t, c)).astype(np.float32)
@@ -62,20 +66,15 @@ def test_self_attention(rng, fuse_qkv):
     jp["to_out"] = {"kernel": wo, "bias": bo}
     if fuse_qkv:
         jp = j_attn.fuse_attention_params(jp)
-    golden = j_attn.MultiHeadSelfAttention(heads, hd, fuse_qkv=fuse_qkv).apply(
+    golden = j_attn.MultiHeadSelfAttention(heads, hd, use_flash, fuse_qkv).apply(
         {"params": jp}, jnp.asarray(x))
     sd = {f"to_{n}.weight": _t(w[n].T) for n in "qkv"}
     sd.update({"to_out.0.weight": _t(wo.T), "to_out.0.bias": _t(bo)})
     if fuse_qkv:
         sd = t_attn.fuse_qkv_state_dict(sd)
-    mod = t_attn.MultiHeadSelfAttention(c, heads, hd, fuse_qkv=fuse_qkv)
+    mod = t_attn.MultiHeadSelfAttention(c, heads, hd, use_flash, fuse_qkv)
     mod.load_state_dict(sd)
     np.testing.assert_allclose(mod(_t(x)).detach().numpy(), _np(golden), atol=ATOL)
-
-
-def test_flash_attention_not_ported_raises():
-    with pytest.raises(NotImplementedError, match="K3"):
-        t_attn.MultiHeadSelfAttention(16, 4, 4, use_flash=True)
 
 
 def test_conv_geglu_feed_forward(rng):

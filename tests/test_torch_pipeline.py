@@ -37,6 +37,7 @@ from audiolcm_torch.models import dit as t_dit
 from audiolcm_torch.models import t5_encoder as t_t5
 from audiolcm_torch.models import vae1d as t_vae
 from audiolcm_torch.nn import amp_stage
+from audiolcm_torch.nn import attention as t_attn
 from audiolcm_tpu import api as j_api
 from audiolcm_tpu import convert as j_conv
 from audiolcm_tpu import pipeline as j_pipe
@@ -166,14 +167,16 @@ def test_serving_profile_knobs(synthetic_ckpt):  # noqa: F811
     assert tp.modules.clap_text.fuse_proj and tp.modules.t5.fuse_proj
     with pytest.raises(ValueError, match="profile"):
         t_api.build_pipeline(cfg_path, ckpt_path, voc_dir, profile="fast", device="cpu")
-    for kw, item in (({"use_flash": True}, "K3"), ({"fold_t_segments": 8}, "item 10"),
-                     ({"int8_min_channels": 96}, "item 10")):
-        with pytest.raises(NotImplementedError, match=item):
+    attns = lambda p: [m for m in p.modules.dit.modules()
+                       if isinstance(m, t_attn.MultiHeadSelfAttention)]
+    assert attns(tp) and not any(m.use_flash for m in attns(tp))  # einsum by default
+    flash = t_api.build_pipeline(cfg_path, ckpt_path, voc_dir, use_flash=True, device="cpu")
+    assert attns(flash) and all(m.use_flash for m in attns(flash))
+    for kw in ({"fold_t_segments": 8}, {"int8_min_channels": 96}):
+        with pytest.raises(NotImplementedError, match="item 10"):
             t_api.build_pipeline(cfg_path, ckpt_path, voc_dir, device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="item 16"):
         t_api.prewarm_buckets(tp)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tp.generate_teacher(None, None)
 
 
 def test_from_jax_round_trip():
