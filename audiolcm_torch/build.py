@@ -3,8 +3,9 @@
 Each source compiles with nvcc into its own shared library with a plain C
 interface (loaded with ctypes by the kernel's wrapper), for sm_90a, into
 `audiolcm_torch/_build/` (git-ignored). Libraries are named by a hash of
-their source, so an edited source rebuilds and an unchanged one is reused.
-`build_all` starts one nvcc per source, all at once.
+their source and the shared headers (`csrc/*.cuh`), so an edited source or
+header rebuilds and an unchanged one is reused. `build_all` starts one nvcc
+per source, all at once; a header is only ever compiled through a source.
 
     python -m audiolcm_torch.build     # build everything, print ptxas stats
 """
@@ -36,9 +37,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library's path, named by a hash of its source, every shared
+    header under csrc/ and the flags."""
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _start(name: str):

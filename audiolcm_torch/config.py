@@ -65,6 +65,15 @@ def _parse(node: dict):
     return REGISTRY[target](node.get("params") or {})
 
 
+def build_vae(node: dict) -> AutoencoderKL1D:
+    """The VAE of one `{target, params}` node: a root model of
+    configs/autoencoder1d.yaml or an LDM's first_stage_config."""
+    cfg = _parse(node)
+    if not isinstance(cfg, VAEConfig):
+        raise ValueError(f"config target {node['target']!r} is not a VAE")
+    return AutoencoderKL1D(cfg)
+
+
 @dataclasses.dataclass
 class DiffusionSystemConfig:
     """Parsed `model.params`: constructor arguments, not modules, so the

@@ -98,7 +98,8 @@ def fold_weight_norms(sd: dict) -> dict:
 def assign_state_dict(module: nn.Module, sd: dict) -> nn.Module:
     """Copy a reference-layout state dict into `module` (its device and
     dtype). Every tensor the module has must be present with its shape;
-    keys the module does not have are ignored (e.g. the VAE encoder)."""
+    keys the module does not have are ignored (e.g. the other models of an
+    LCM checkpoint)."""
     own = module.state_dict()
     missing = [k for k in own if k not in sd]
     if missing:
@@ -205,9 +206,24 @@ def _attnblock(p: dict, name: str, out: dict) -> None:
 
 
 def vae_from_jax(p: dict) -> SD:
-    """Decoder half (+ post_quant_conv) of the VAE."""
+    """Both halves of the VAE with their quant convs."""
     out: SD = {}
+    _conv(p["quant_conv"], "quant_conv", out)
     _conv(p["post_quant_conv"], "post_quant_conv", out)
+    enc = p["encoder"]
+    for n in ("conv_in", "conv_out"):
+        _conv(enc[n], f"encoder.{n}", out)
+    _norm(enc["norm_out"], "encoder.norm_out", out)
+    _resblock(enc["mid_block_1"], "encoder.mid.block_1", out)
+    _attnblock(enc["mid_attn_1"], "encoder.mid.attn_1", out)
+    _resblock(enc["mid_block_2"], "encoder.mid.block_2", out)
+    for key, sub in enc.items():
+        if m := re.fullmatch(r"down_(\d+)_block_(\d+)", key):
+            _resblock(sub, f"encoder.down.{m.group(1)}.block.{m.group(2)}", out)
+        elif m := re.fullmatch(r"down_(\d+)_attn_(\d+)", key):
+            _attnblock(sub, f"encoder.down.{m.group(1)}.attn.{m.group(2)}", out)
+        elif m := re.fullmatch(r"down_(\d+)_downsample", key):
+            _conv(sub["conv"], f"encoder.down.{m.group(1)}.downsample.conv", out)
     dec = p["decoder"]
     _conv(dec["conv_in"], "decoder.conv_in", out)
     _conv(dec["conv_out"], "decoder.conv_out", out)

@@ -32,11 +32,11 @@
 //     4x32 positions so one shared-memory read feeds 4 FMAs.
 //
 // Plain C interface, loaded with ctypes (audiolcm_torch/nn/amp_stage.py).
+// The loads, stores, cos and snake live in snake_act.cuh, shared with K4.
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC -o libamp_stage.so amp_stage.cu
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "snake_act.cuh"
 
 #define NTHREADS 256
 #define NWARPS (NTHREADS / 32)
@@ -60,40 +60,6 @@ struct StageArgs {
   int fast;
   float up_e[6], up_o[6], dn_e[6], dn_o[6];
 };
-
-template <typename IO> __device__ __forceinline__ float load_f(const IO* p);
-template <> __device__ __forceinline__ float load_f<float>(const float* p) { return *p; }
-template <> __device__ __forceinline__ float load_f<__nv_bfloat16>(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-template <typename IO> __device__ __forceinline__ void store_f(IO* p, float v);
-template <> __device__ __forceinline__ void store_f<float>(float* p, float v) { *p = v; }
-template <> __device__ __forceinline__ void store_f<__nv_bfloat16>(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
-// Range-reduced even polynomial for cos (audiolcm_torch/nn/snake.py:fast_cos).
-__device__ __forceinline__ float fast_cos(float v) {
-  const float k = rintf(v * 0.15915494309189535f);
-  const float xr = (v - k * 6.28125f) - k * 0.0019353071795864769f;
-  const float u = xr * xr;
-  float acc = 1.7369116668414461e-09f;
-  acc = acc * u + -2.7113368760900975e-07f;
-  acc = acc * u + 2.4773423751927707e-05f;
-  acc = acc * u + -0.0013887970390010532f;
-  acc = acc * u + 0.04166652435962621f;
-  acc = acc * u + -0.4999999177184745f;
-  acc = acc * u + 0.9999999922819011f;
-  return acc;
-}
-
-__device__ __forceinline__ float snake(float h, float alpha, float binv, int fast) {
-  const float arg = (2.0f * alpha) * h;
-  const float c = fast ? fast_cos(arg) : cosf(arg);
-  return h + 0.5f * (1.0f - c) * binv;
-}
-
-__device__ __forceinline__ int clampi(int v, int lo, int hi) { return min(max(v, lo), hi); }
 
 // Alias-free SnakeBeta of IN into OUT over local output range [lo, hi).
 // IN must be valid over [lo-6, hi+6) (or the clamped edge sample there).

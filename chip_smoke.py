@@ -10,7 +10,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                 source, all started together (ptxas stats)
   3. check    — each kernel against its plain PyTorch version on the card at
                 the main paths' shapes (f32 with TF32 off, and bf16): the AMP
-                stage K1 and its per-item forms K2a/K2b, flash attention K3
+                stage K1, K1 at each stage variant of the profiler, its
+                per-item forms K2a/K2b, flash attention K3, the activation
+                chain K4
   4. time     — each kernel, its plain version, the bound and (K3) the
                 library call, bf16; the unfused vocoder's two alias-free
                 activation forms at every stage width
@@ -24,6 +26,16 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                 10 s DDIM-100 generate with guidance 5 and flash attention
                 (DiT batch 16), its launch counts, ms, breakdown and
                 profile, and a PLMS-25 generate's launch counts
+  7. interior — the stage-interior profiler (audiolcm_torch.tools.
+                profile_stage_interior) at both serving shapes, one line per
+                row, with the launch counts of that run: K1 variants and the
+                activation chain K4 (checked and timed in phases 3-4)
+  8. vocode   — the log-mel of a 10 s wav on the card against the CPU; the
+                vocoder_infer CLI at full width (random generator file +
+                config.json in a temp dir) in mel mode on one 10 s mel, and
+                in wav mode on one 10 s wav
+  9. roundtrip— a full-width f32 VAE encode on the card against the CPU; the
+                reconstruct CLI's roundtrip() at batch 8, 10 s
 then the kernels line and, last, the device line.
 """
 
@@ -33,6 +45,7 @@ import argparse
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -42,6 +55,14 @@ F32_TOL = 1e-4  # f32 kernel vs plain: same math, sums in another order
 WAV_TOL = 1e-4  # batch-1 f32 pre-tanh waveform, fused stage vs unfused vocoder
 FLASH_TOL = 2e-5  # K3 f32 vs plain: the JAX bar (tests/test_pallas_attention.py:26)
 DIT_TOL = 1e-4  # f32 DiT eps, flash vs einsum: attention sums in another order, 4 blocks
+# f32 VAE moments, card vs CPU, relative to max|moments|: ~20 convs and one
+# softmax attention summed in another order by cuDNN and the CPU kernels
+MOMENTS_REL_TOL = 1e-3
+# f32 log-mel of a tone in noise, card vs CPU: cuFFT against the CPU's FFT
+# and the filterbank sums in another order (every bin far above the floor)
+MEL_TOL = 1e-3
+PROFILE_BATCH = 8  # the stage-interior profiler's batch (profile_shape)
+ACT_FLOP = 78  # per sample and activation: up-FIR 24, two snakes ~30, down-FIR 24
 GUIDANCE = 5.0
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 rate (published peak, 700 W)
 HBM = 3.35e12  # H100 SXM memory rate, bytes/s
@@ -153,6 +174,46 @@ def check_phase(device, shapes, rehearsal: bool) -> list:
                 raise AssertionError(f"amp_stage bf16 error above the plain bf16 path's: {row}")
             results.append(row)
     return results
+
+
+def check_variants_phase(device, shapes, rehearsal: bool) -> list:
+    """K1 at every stage variant the interior profiler launches (resblock
+    and dilation subsets, exact cos, accum f32: other stage radii, so other
+    tiles) against the plain version on the same subset parameters, at the
+    profiler's batch, with check_phase's bars and parameters: fan-in-scaled
+    convs keep the output O(1), where the profiler's 0.1-scale draws grow
+    it until an absolute f32 bar measures its magnitude, not the kernel."""
+    from audiolcm_torch.nn import amp_stage as A
+    from audiolcm_torch.tools.profile_stage_interior import STAGE_VARIANTS, subset
+
+    rows = []
+    for c, t in shapes:
+        sp = stage_params(c, seed=c + 2, device=device)
+        x = torch.randn(PROFILE_BATCH, c, t, generator=torch.Generator(device).manual_seed(t + 3),
+                        device=device).transpose(1, 2)
+        for key, (ks, ds, fast, accum) in STAGE_VARIANTS.items():
+            p = subset(sp, ks, ds)
+            kernel = (lambda xi, pi: A.stage_tiles_emulated(xi, pi, ks, ds, fast) if rehearsal
+                      else A.fused_amp_stage(xi, pi, ks, ds, fast=fast, accum=accum))
+            plain = A.fused_amp_stage_plain(x, p, ks, ds, fast)
+            err = (kernel(x, p) - plain).abs()
+            edge = max(err[:, :256].max().item(), err[:, -256:].max().item())
+            pb, xb = cast(p, torch.bfloat16), x.bfloat16()
+            kerr = (kernel(xb, pb).float() - plain).abs().mean().item()
+            perr = (A.fused_amp_stage_plain(xb, pb, ks, ds, fast).float() - plain).abs().mean().item()
+            sync(device)
+            row = {"C": c, "T": t, "batch": PROFILE_BATCH, "variant": key, "ks": list(ks),
+                   "ds": list(ds), "fast": fast, "accum": accum,
+                   "tile": A.pick_tile(c, A.stage_radius(ks, ds)),
+                   "f32_max_abs_err": err.max().item(), "f32_edge_max_abs_err": edge,
+                   "f32_tol": F32_TOL, "plain_abs_max": plain.abs().max().item(),
+                   "bf16_mean_err": kerr, "plain_bf16_mean_err": perr}
+            emit({"phase": "check", "kernel": "amp_stage", **row})
+            if not (row["f32_max_abs_err"] <= F32_TOL and edge <= F32_TOL
+                    and kerr <= perr * 1.02):
+                raise AssertionError(f"amp_stage variant disagrees with its plain version: {row}")
+            rows.append(row)
+    return rows
 
 
 def time_phase(device, shapes, card: dict) -> dict:
@@ -308,6 +369,79 @@ def time_flash_phase(device, shape, card: dict) -> dict:
     return row
 
 
+def act_params(c: int, device) -> tuple:
+    """The profiler's act-row snake parameters: alpha 0.3 (in bf16), beta 1."""
+    from audiolcm_torch.tools.profile_stage_interior import ALPHA, BETA
+
+    return (torch.full((c,), ALPHA, device=device).bfloat16(),
+            torch.full((c,), BETA, device=device))
+
+
+def check_act_phase(device, shapes, rehearsal: bool) -> list:
+    """K4 against its plain version at the profiler's parameters and batch,
+    n_rep 2 and 6, fast off and on: f32 max abs error (whole, and the first
+    and last 6 * n_rep samples) <= F32_TOL; bf16 mean error against the f32
+    plain result at most 1.02x the plain bf16 chain's."""
+    from audiolcm_torch.nn import act_chain as K
+
+    kernel = K.act_chain_tiles_emulated if rehearsal else K.act_chain
+    rows = []
+    for c, t in shapes:
+        x = torch.randn(PROFILE_BATCH, t, c,
+                        generator=torch.Generator(device).manual_seed(t + 2), device=device)
+        a, b = act_params(c, device)
+        for n_rep in (2, 6):
+            for fast in (False, True):
+                plain = K.act_chain_plain(x, a, b, n_rep, fast)
+                err = (kernel(x, a, b, n_rep, fast) - plain).abs()
+                h = K.halo(n_rep)
+                edge = max(err[..., :h].max().item(), err[..., -h:].max().item())
+                kerr = (kernel(x.bfloat16(), a, b, n_rep, fast).float() - plain).abs().mean().item()
+                perr = (K.act_chain_plain(x.bfloat16(), a, b, n_rep, fast).float()
+                        - plain).abs().mean().item()
+                sync(device)
+                row = {"kernel": "act_chain", "C": c, "T": t, "batch": PROFILE_BATCH,
+                       "n_rep": n_rep,
+                       "fast": fast, "f32_max_abs_err": err.max().item(),
+                       "f32_edge_max_abs_err": edge, "f32_tol": F32_TOL, "bf16_mean_err": kerr,
+                       "plain_bf16_mean_err": perr}
+                emit({"phase": "check", **row})
+                if not (row["f32_max_abs_err"] <= F32_TOL and edge <= F32_TOL
+                        and kerr <= perr * 1.02):
+                    raise AssertionError(f"act_chain disagrees with its plain version: {row}")
+                rows.append(row)
+    return rows
+
+
+def act_bound_ms(b: int, c: int, t: int, n_rep: int, elem_bytes: int) -> tuple:
+    """Least time for one activation chain: x read once and the output
+    written once over the HBM rate, vs ACT_FLOP per sample and activation
+    over the bf16 peak."""
+    t_bytes = 2 * b * c * t * elem_bytes / HBM
+    t_ops = ACT_FLOP * n_rep * b * c * t / PEAK_BF16
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations"
+
+
+def time_act_phase(device, shapes, card: dict) -> list:
+    """K4 at the profiler's launches: its batch, bf16, fast, n_rep 2 and 6
+    (CUDA events), its plain version and the bound."""
+    from audiolcm_torch.nn import act_chain as K
+
+    rows = []
+    for c, t in shapes:
+        x = torch.randn(PROFILE_BATCH, t, c, device=device, dtype=torch.bfloat16)
+        a, b = act_params(c, device)
+        for n_rep in (2, 6):
+            row = {"C": c, "T": t, "batch": PROFILE_BATCH, "n_rep": n_rep,
+                   "ms": event_ms(lambda: K.act_chain(x, a, b, n_rep), iters=20, warmup=2),
+                   "plain_ms": event_ms(lambda: K.act_chain_plain(x, a, b, n_rep, True), iters=3)}
+            row["bound_ms"], row["bound_by"] = act_bound_ms(PROFILE_BATCH, c, t, n_rep, 2)
+            row.update(library_ms=None, card=card["nvidia_smi"])
+            emit({"phase": "time", "kernel": "act_chain", **row})
+            rows.append(row)
+    return rows
+
+
 def init_random_(module: torch.nn.Module, gen: torch.Generator) -> None:
     """Fan-in-scaled normal weights, norm scales ~1, small biases and
     log-scale snake parameters: finite activations at every width. The
@@ -356,18 +490,21 @@ def build_modules(device, full: bool):
 
 
 def reset_counts() -> None:
+    from audiolcm_torch.nn import act_chain as K
     from audiolcm_torch.nn import amp_stage as A
     from audiolcm_torch.nn import flash_attention as FA
 
-    A.LAUNCHES = A.LAUNCHES_TC = A.LAUNCHES_CL = FA.LAUNCHES = 0
+    A.LAUNCHES = A.LAUNCHES_TC = A.LAUNCHES_CL = FA.LAUNCHES = K.LAUNCHES = 0
 
 
 def read_counts() -> dict:
+    from audiolcm_torch.nn import act_chain as K
     from audiolcm_torch.nn import amp_stage as A
     from audiolcm_torch.nn import flash_attention as FA
 
     return {"amp_stage": A.LAUNCHES, "amp_stage_tc": A.LAUNCHES_TC,
-            "amp_stage_cl": A.LAUNCHES_CL, "flash_attention": FA.LAUNCHES}
+            "amp_stage_cl": A.LAUNCHES_CL, "flash_attention": FA.LAUNCHES,
+            "act_chain": K.LAUNCHES}
 
 
 def set_flash(dit: torch.nn.Module, on: bool) -> None:
@@ -425,7 +562,7 @@ def generate_phase(device, mods, full: bool, card: dict) -> dict:
     ok = (tuple(wav.shape) == expect and bool(torch.isfinite(wav).all())
           and wav.abs().max().item() <= 1.0
           and launches == {"amp_stage": 2 if on_card else 0, "amp_stage_tc": 0,
-                           "amp_stage_cl": 0, "flash_attention": 0})
+                           "amp_stage_cl": 0, "flash_attention": 0, "act_chain": 0})
     row = {"batch": batch, "wav_shape": list(wav.shape), "mel_shape": list(mel.shape),
            "finite": bool(torch.isfinite(wav).all()), "wav_abs_max": wav.abs().max().item(),
            "wav_std": wav.std().item(),
@@ -578,7 +715,7 @@ def teacher_phase(device, mods, full: bool, card: dict) -> dict:
            "finite": bool(torch.isfinite(wav).all()), "wav_abs_max": wav.abs().max().item(),
            "wav_std": wav.std().item(), "launches": launches}
     want = {"amp_stage": 2 if on_card else 0, "amp_stage_tc": 0, "amp_stage_cl": 0,
-            "flash_attention": n_attn * n_steps if on_card else 0}
+            "flash_attention": n_attn * n_steps if on_card else 0, "act_chain": 0}
     if not (tuple(wav.shape) == expect and row["finite"] and row["wav_abs_max"] <= 1.0
             and launches == want):
         emit({"phase": "teacher", **row})
@@ -635,12 +772,220 @@ def teacher_breakdown(pipe, ids, uc_ids, latent: int, gen) -> dict:
     return out
 
 
+def interior_phase(device, shapes, card: dict, rehearsal: bool) -> dict:
+    """The stage-interior profiler's full table at each shape (batch 8,
+    bf16), one JSON line per row, through the port's tool module; the
+    launch counts of that run. The rehearsal runs every variant once on the
+    CPU's plain versions and times nothing."""
+    import math
+
+    from audiolcm_torch.tools.profile_stage_interior import profile_shape
+
+    def untimed(fn, iters):
+        fn()
+        return math.nan
+
+    def report(row):
+        row = {k: "not measured" if isinstance(v, float) and math.isnan(v) else v
+               for k, v in row.items()}
+        emit({"phase": "interior", **row, "card": card["nvidia_smi"]})
+
+    iters = 5
+    reset_counts()
+    tables = [profile_shape(c, t, device, iters=iters, batch=PROFILE_BATCH, report=report,
+                            timer=untimed if rehearsal else None) for c, t in shapes]
+    sync(device)
+    launches = read_counts()
+    emit({"phase": "interior_launches", "launches": launches})
+    per_row = 0 if rehearsal else (1 + iters) * len(shapes)  # warm-up + iters per row
+    n_k1, n_k4 = 6 * per_row, 2 * per_row  # 6 stage rows, 2 act rows
+    if launches != {"amp_stage": n_k1, "amp_stage_tc": 0, "amp_stage_cl": 0,
+                    "flash_attention": 0, "act_chain": n_k4}:
+        raise AssertionError(f"profiler run: launches {launches}, expected K1 {n_k1}, K4 {n_k4}")
+    return {"launches": launches, "tables": tables}
+
+
+def vocoder_args(full: bool) -> dict:
+    """The vocoder's args (config.json schema): the shipped 16 kHz BigVGAN
+    (1536 -> 24 channels), or the rehearsal's narrow one."""
+    from audiolcm_torch.models.bigvgan import BigVGANConfig
+
+    cfg = BigVGANConfig() if full else BigVGANConfig(upsample_initial_channel=192)
+    return {"num_mels": cfg.num_mels, "upsample_rates": list(cfg.upsample_rates),
+            "upsample_kernel_sizes": list(cfg.upsample_kernel_sizes),
+            "upsample_initial_channel": cfg.upsample_initial_channel,
+            "resblock_kernel_sizes": list(cfg.resblock_kernel_sizes),
+            "resblock_dilation_sizes": [list(d) for d in cfg.resblock_dilation_sizes],
+            "activation": cfg.activation, "snake_logscale": cfg.snake_logscale,
+            "resblock": cfg.resblock, "sampling_rate": 16000, "n_fft": 1024, "win_size": 1024,
+            "hop_size": 256, "fmin": 0, "fmax": 8000}
+
+
+def mel_check(device, wav) -> dict:
+    """melprep.wav_to_mel (the log-mel the prep and the vocoder CLI's wav
+    mode compute on the card by default) on the card against the CPU, f32
+    with TF32 off: max abs error of the log-mel <= MEL_TOL."""
+    import numpy as np
+
+    from audiolcm_torch.data.melprep import wav_to_mel
+
+    mel = wav_to_mel(wav, device=device)
+    ref = wav_to_mel(wav, device="cpu")
+    row = {"samples": len(wav), "mel_shape": list(mel.shape),
+           "log_mel_max_abs_err": float(np.abs(mel - ref).max()), "tol": MEL_TOL}
+    emit({"phase": "vocode_mel_check", **row})
+    if not (mel.shape == ref.shape and row["log_mel_max_abs_err"] <= MEL_TOL):
+        raise AssertionError(f"log-mel on {device} vs the CPU: {row}")
+    return row
+
+
+def vocode_phase(device, full: bool, card: dict, tmp: str) -> dict:
+    """`python -m audiolcm_torch.cli.vocoder_infer --input_mels_dir` on one
+    10 s (624-frame) mel with a random-weight generator file and its
+    config.json: the whole command's host-clock ms (checkpoint load and wav
+    write included; the second of two runs), and the generator's own
+    CUDA-event ms on that mel. f32, no fused stage (the CLI's defaults).
+    Before it, mel_check on a 10 s tone in noise; after it, one run of
+    the CLI's wav mode (--input_wavs_dir) on that wav."""
+    import json
+    import os
+
+    import numpy as np
+    from scipy.io import wavfile
+
+    from audiolcm_torch import config as cfg_mod
+    from audiolcm_torch.cli import vocoder_infer
+
+    frames = 624 if full else 16
+    n_wav = 16000 * (10 if full else 1)
+    rng = np.random.default_rng(13)
+    tone = 0.3 * np.sin(2 * np.pi * 440.0 * np.arange(n_wav) / 16000)
+    wav_in = (tone + 0.1 * rng.standard_normal(n_wav)).astype(np.float32)
+    mel_row = mel_check(device, wav_in)
+    args = vocoder_args(full)
+    voc = cfg_mod.build_vocoder_from_args(args)
+    init_random_(voc, torch.Generator().manual_seed(6))
+    ckpt = os.path.join(tmp, "g_00000000.pt")
+    torch.save({"generator": voc.state_dict()}, ckpt)
+    with open(os.path.join(tmp, "config.json"), "w") as f:
+        json.dump(args, f)
+    mels, out = os.path.join(tmp, "mels"), os.path.join(tmp, "out")
+    os.makedirs(mels)
+    mel = np.random.default_rng(7).standard_normal((80, frames)).astype(np.float32) - 4.0
+    np.save(os.path.join(mels, "clip.npy"), mel)
+    argv = ["--input_mels_dir", mels, "--output_dir", out, "--checkpoint_file", ckpt,
+            "--device", str(device)]
+    vocoder_infer.main(argv)  # warm-up
+    sync(device)
+    t0 = time.perf_counter()
+    vocoder_infer.main(argv)
+    sync(device)
+    cli_ms = 1e3 * (time.perf_counter() - t0)
+    sr, wav = wavfile.read(os.path.join(out, "clip_generated_e2e.wav"))
+    row = {"batch": 1, "frames": frames, "channels": args["upsample_initial_channel"],
+           "sample_rate": sr, "wav_len": len(wav), "wav_dtype": str(wav.dtype),
+           "wav_abs_max": int(np.abs(wav.astype(np.int32)).max())}
+    if not (sr == 16000 and wav.dtype == np.int16 and len(wav) == 256 * frames
+            and row["wav_abs_max"] > 0):
+        emit({"phase": "vocode", **row})
+        raise AssertionError(f"vocoder_infer output check failed: {row}")
+    if device.type == "cuda":
+        gen, _ = vocoder_infer.load_generator(ckpt, device)
+        x = torch.from_numpy(mel.T.copy())[None].to(device)
+        with torch.inference_mode():
+            voc_ms = event_ms(lambda: gen(x), iters=3)
+        row.update(cli_ms=cli_ms, cli_x_realtime=frames * 256 / 16000 / (cli_ms / 1e3),
+                   vocoder_ms=voc_ms, x_realtime=frames * 256 / 16000 / (voc_ms / 1e3),
+                   card=card["nvidia_smi"])
+    else:
+        row.update(cli_ms="not measured", vocoder_ms="not measured", x_realtime="not measured")
+    # wav mode: the CLI's own log-mel on --device, then the vocoder
+    wavs, out_w = os.path.join(tmp, "wavs"), os.path.join(tmp, "out_wavs")
+    os.makedirs(wavs)
+    wavfile.write(os.path.join(wavs, "tone.wav"), 16000, (wav_in * 32767).astype(np.int16))
+    vocoder_infer.main(["--input_wavs_dir", wavs, "--output_dir", out_w, "--checkpoint_file",
+                        ckpt, "--device", str(device)])
+    sr_w, wav_w = wavfile.read(os.path.join(out_w, "tone_generated.wav"))
+    want = 256 * (1 + (n_wav + 2 * 384 - 1024) // 256)  # hop x frames of the padded wav
+    row["wav_mode"] = {"in_samples": n_wav, "out_samples": len(wav_w), "sample_rate": sr_w,
+                       "wav_abs_max": int(np.abs(wav_w.astype(np.int32)).max())}
+    row["mel_check"] = mel_row
+    emit({"phase": "vocode", **row})
+    if not (sr_w == 16000 and wav_w.dtype == np.int16 and len(wav_w) == want
+            and row["wav_mode"]["wav_abs_max"] > 0):
+        raise AssertionError(f"vocoder_infer wav mode output check failed: {row['wav_mode']}")
+    return row
+
+
+def roundtrip_phase(device, full: bool, card: dict) -> dict:
+    """The VAE round trip of cli/reconstruct_audio.py. Check: a full-width
+    VAE (configs/autoencoder1d.yaml's ddconfig, random weights) encode_moments
+    on one 10 s mel in f32 with TF32 off on the card against the same
+    module on the CPU, max abs error <= MOMENTS_REL_TOL x max|moments|. Run:
+    roundtrip() (encode, posterior sample, decode, vocode with the CLI's
+    f32 unfused vocoder) at batch 8, 10 s."""
+    import copy
+
+    from audiolcm_torch import config as cfg_mod
+    from audiolcm_torch.cli.reconstruct_audio import roundtrip
+    from audiolcm_torch.models.vae1d import AutoencoderKL1D, VAEConfig
+
+    frames = 624 if full else 16
+    cfg = VAEConfig() if full else VAEConfig(ch=32, ch_mult=(1, 2), num_res_blocks=1)
+    vae_cpu = AutoencoderKL1D(cfg).eval()
+    init_random_(vae_cpu, torch.Generator().manual_seed(8))
+    vae = copy.deepcopy(vae_cpu).to(device)
+    mel = torch.randn(1, frames, 80, generator=torch.Generator().manual_seed(9))
+    with torch.inference_mode():
+        ref = vae_cpu.encode_moments(mel)
+        err = (vae.encode_moments(mel.to(device)).cpu() - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    row = {"check": {"batch": 1, "frames": frames, "ch": cfg.ch, "dtype": "float32",
+                     "moments_max_abs_err": err, "moments_abs_max": scale,
+                     "tol": MOMENTS_REL_TOL * scale}}
+    if not err <= MOMENTS_REL_TOL * scale:
+        emit({"phase": "roundtrip", **row})
+        raise AssertionError(f"VAE encode_moments on the card vs the CPU: {row['check']}")
+    voc = cfg_mod.build_vocoder_from_args(vocoder_args(full)).to(device).eval()
+    init_random_(voc, torch.Generator(device).manual_seed(10))
+    batch = 8 if full else 2
+    mels = torch.randn(batch, frames, 80, generator=torch.Generator(device).manual_seed(11),
+                       device=device) - 4.0
+    gen = torch.Generator(device).manual_seed(12)
+    run = lambda: roundtrip(vae, voc, mels, gen)
+    recon, wav = run()  # warm-up
+    sync(device)
+    ok = (tuple(recon.shape) == (batch, frames, 80) and tuple(wav.shape) == (batch, 256 * frames)
+          and bool(torch.isfinite(wav).all()) and bool(torch.isfinite(recon).all()))
+    row["run"] = {"batch": batch, "frames": frames, "recon_shape": list(recon.shape),
+                  "wav_shape": list(wav.shape), "finite": ok,
+                  "mse": ((recon - mels) ** 2).mean().item()}
+    if not ok:
+        emit({"phase": "roundtrip", **row})
+        raise AssertionError(f"roundtrip output check failed: {row['run']}")
+    if device.type == "cuda":
+        iters = 2
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            run()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / iters
+        row["run"].update(ms=ms, x_realtime=batch * frames * 256 / 16000 / (ms / 1e3),
+                          card=card["nvidia_smi"])
+    else:
+        row["run"].update(ms="not measured", x_realtime="not measured")
+    emit({"phase": "roundtrip", **row})
+    return row
+
+
 def kernels_line(checks, k2_checks, flash_checks, times, k2_times, flash_time, gen_row,
-                 teacher_row) -> dict:
+                 teacher_row, act_checks, act_times, interior) -> dict:
     """One entry per kernel: launches on its path (K1: the LCM generate;
-    K3: the teacher generate; K2a/K2b lie on neither), the largest f32 error
-    of its checks, and this run's times (K1/K2: both fused stages of one
-    batch-8 generate, summed; K3: one launch at the teacher's shape)."""
+    K3: the teacher generate; K4: the profiler run; K2a/K2b lie on none),
+    the largest f32 error of its checks, and this run's times (K1/K2: both
+    fused stages of one batch-8 generate, summed; K3: one launch at the
+    teacher's shape; K4: its four profiler launches, n_rep 2 and 6 at both
+    shapes, summed)."""
     measured = bool(times)
     nm = "not measured"
     stage_shapes = sorted({(r["C"], r["T"]) for r in times.values()}, reverse=True)
@@ -675,6 +1020,16 @@ def kernels_line(checks, k2_checks, flash_checks, times, k2_times, flash_time, g
                 "shape": flash_time.get("shape", nm),
                 "launches_plms_25": teacher_row["plms"]["launches"]["flash_attention"],
                 "launches_lcm_with_flash": gen_row["launches_with_flash"]["flash_attention"]})
+    act_sum = lambda key: sum(r[key] for r in act_times) if act_times else nm
+    out.append({"name": "act_chain", "route": "cuda", "source": "audiolcm_torch/csrc/act_chain.cu",
+                "replaces": "tools/profile_stage_interior.py:110 act_only_fn",
+                "launches": interior["launches"]["act_chain"],
+                "max_abs_err": max(r["f32_max_abs_err"] for r in act_checks),
+                "ms": act_sum("ms"), "plain_ms": act_sum("plain_ms"),
+                "bound_ms": act_sum("bound_ms"),
+                "bound_by": act_times[0]["bound_by"] if act_times else nm, "library_ms": None,
+                "library_note": "no single PyTorch call computes a chain of alias-free SnakeBetas",
+                "per_case": act_times})
     return {"kernels": out}
 
 
@@ -698,6 +1053,7 @@ def main(argv=None) -> int:
         emit({"phase": "build", **build_phase()})
     shapes = [(48, 79872), (24, 159744), (48, 79872 - 77)] if not rehearsal else [(6, 700)]
     checks = check_phase(device, shapes, rehearsal)
+    checks += check_variants_phase(device, shapes, rehearsal)
     k2_checks = check_k2_phase(device, shapes[:2], rehearsal)
     # the teacher's DiT attention (CFG batch 16, T = 467), the longest DiT
     # sequence (max_len 1000), a short head, and the chunk views of to_qkv
@@ -705,18 +1061,25 @@ def main(argv=None) -> int:
                     ((1, 2, 100, 8), False), ((16, 8, 467, 72), True)]
                    if not rehearsal else [((2, 2, 37, 8), False), ((2, 2, 37, 8), True)])
     flash_checks = check_flash_phase(device, flash_cases)
-    times, k2_times, flash_time = {}, {}, {}
+    act_checks = check_act_phase(device, shapes, rehearsal)
+    times, k2_times, flash_time, act_times = {}, {}, {}, []
     if not rehearsal:
         times = time_phase(device, shapes[:2], card)
         k2_times = time_k2_phase(device, shapes[:2], card)
         flash_time = time_flash_phase(device, (16, 8, 467, 72), card)
+        act_times = time_act_phase(device, shapes[:2], card)
         act_forms_phase(device, card)
     mods = build_modules(device, full=not rehearsal)
     gen_row = generate_phase(device, mods, full=not rehearsal, card=card)
     teacher_check_phase(device, full=not rehearsal)
     teacher_row = teacher_phase(device, mods, full=not rehearsal, card=card)
+    del mods
+    interior = interior_phase(device, shapes[:2], card, rehearsal)
+    with tempfile.TemporaryDirectory() as tmp:
+        vocode_phase(device, full=not rehearsal, card=card, tmp=tmp)
+    roundtrip_phase(device, full=not rehearsal, card=card)
     emit(kernels_line(checks, k2_checks, flash_checks, times, k2_times, flash_time, gen_row,
-                      teacher_row))
+                      teacher_row, act_checks, act_times, interior))
     if rehearsal:
         emit({"rehearsal": True, "ok": True})
         return 0
