@@ -8,12 +8,17 @@ header rebuilds and an unchanged one is reused. `build_all` starts one nvcc
 per source, all at once; a header is only ever compiled through a source.
 
     python -m audiolcm_torch.build     # build everything, print ptxas stats
+
+`sass_op_counts` reads a built library's machine code (`cuobjdump
+--dump-sass`) and counts one opcode per kernel, e.g. HMMA for the tensor
+cores' matrix multiply-accumulate.
 """
 
 from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -25,14 +30,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def _cuda_tool(name: str) -> str:
+    found = shutil.which(name)
     if found:
         return found
-    default = "/usr/local/cuda/bin/nvcc"
+    default = f"/usr/local/cuda/bin/{name}"
     if os.path.exists(default):
         return default
-    raise RuntimeError("nvcc not found: the CUDA kernels of audiolcm_torch are built on the "
+    raise RuntimeError(f"{name} not found: the CUDA kernels of audiolcm_torch are built on the "
                        "machine with the GPU")
 
 
@@ -55,7 +60,7 @@ def _start(name: str):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    cmd = [_cuda_tool("nvcc"), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return path, tmp, proc
 
@@ -83,6 +88,22 @@ def build_all() -> dict:
     names = sorted(p.stem for p in CSRC.glob("*.cu"))
     started = {n: _start(n) for n in names}
     return {n: _finish(n, *started[n]) for n in names}
+
+
+def sass_op_counts(name: str, opcode: str) -> dict:
+    """{kernel symbol: number of `opcode` instructions} in the SASS of the
+    library of csrc/<name>.cu (built or reused)."""
+    sass = subprocess.run([_cuda_tool("cuobjdump"), "--dump-sass", str(build(name))],
+                          capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    op = re.compile(rf"\b{re.escape(opcode)}\b")
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and op.search(line):
+            counts[fn] += 1
+    return counts
 
 
 if __name__ == "__main__":

@@ -1,17 +1,22 @@
-"""Flash self-attention: the CUDA kernel K3 (`csrc/flash_attention.cu`), its
-plain PyTorch version, and the kernel's blockwise algorithm in torch.
+"""Flash self-attention: the CUDA kernels of K3 (`csrc/flash_attention.cu`),
+their plain PyTorch version, and the bf16 kernel's blockwise algorithm in
+torch.
 
 It replaces the TPU kernel `audiolcm_tpu/nn/pallas_attention.py:flash_attention`.
 
-  * `flash_attention` — the wrapper. A CUDA tensor launches the kernel (or
-    raises); a CPU tensor runs `flash_attention_plain`.
+  * `flash_attention` — the wrapper. A CUDA tensor launches a kernel (or
+    raises): bf16 goes to the tensor-core kernel, through 16-byte `cp.async`
+    loads or element-wise loads as `pick_route` decides from the strides;
+    f32 goes to the CUDA-core kernel. A CPU tensor runs
+    `flash_attention_plain`.
   * `flash_attention_plain` — the same function in plain torch: q, k, v
     widened to f32, q scaled before the dot, f32 softmax and P.V, output in
     q's dtype. Used by the CPU tests and by chip_smoke's comparison.
-  * `flash_attention_blocked` — the kernel's own algorithm (key tiles,
-    online softmax over chunks of keys, masked tail, division by
-    max(l, 1e-30) at the end) in torch, so the CPU tests hold the kernel's
-    decomposition against the JAX package.
+  * `flash_attention_blocked` — the tensor-core kernel's algorithm (64-key
+    tiles, one online-softmax step per tile, scale on the f32 logits, masked
+    tail, bf16 P split into hi + lo, division by max(l, 1e-30) at the end)
+    in torch, so the CPU tests hold the kernel's decomposition against the
+    JAX package.
   * `attention_auto` — the JAX dispatcher: the kernel on the card, the
     einsum `dot_product_attention` elsewhere.
 
@@ -25,13 +30,16 @@ import functools
 
 import torch
 
-# Kernel launches since the last reset (chip_smoke sets it to 0 around a run).
+# Kernel launches since the last reset (chip_smoke sets them to 0 around a
+# run): every launch, and those of the bf16 tensor-core kernel.
 LAUNCHES = 0
+LAUNCHES_TC = 0
 
 BLOCK_K = 64  # keys per shared-memory tile; must match csrc/flash_attention.cu
-CHUNK = 16  # keys per online-softmax step; must match csrc/flash_attention.cu
 MAX_D = 128
 NEG_INF = -1e30
+# route codes of csrc/flash_attention.cu's flash_attention_launch
+ROUTES = {"cuda_core": 0, "tc_vec": 1, "tc_elementwise": 2}
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -42,37 +50,72 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention_blocked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
-                            block_k: int = BLOCK_K, chunk: int = CHUNK) -> torch.Tensor:
-    """What csrc/flash_attention.cu computes, in torch: keys in tiles of
-    `block_k`, each tile in chunks of `chunk` keys; per chunk the running
-    max m, the rescale alpha = exp(m_old - m_new), l = alpha*l + sum(p) and
-    acc = alpha*acc + p.v; keys past T masked to -1e30 and chunks wholly
-    past T skipped; out = acc / max(l, 1e-30) in q's dtype."""
+                            block_k: int = BLOCK_K, chunk: int | None = None,
+                            split_p: bool = True) -> torch.Tensor:
+    """What csrc/flash_attention.cu's tensor-core kernel computes, in torch:
+    keys in tiles of `block_k`, one online-softmax step per tile (`chunk`
+    keys per step, default the whole tile); per step the f32 logits
+    (q . k) * scale, the running max m, alpha = exp(m_old - m_new),
+    l = alpha*l + sum(p) over the unrounded f32 p and acc = alpha*acc + p.v,
+    where for bf16 inputs p enters P.V as bf16(p) + bf16(p - bf16(p))
+    (`split_p=False`: one bf16 p); keys past T are masked to -1e30 and steps
+    wholly past T skipped; out = acc / max(l, 1e-30) in q's dtype. For f32
+    inputs the card runs the CUDA-core kernel instead, whose steps are
+    16-key chunks over a pre-scaled q: the same sums in another order."""
     t = q.shape[-2]
-    qs = q.float() * scale
-    kf, vf = k.float(), v.float()
-    acc = torch.zeros_like(qs)
-    m = qs.new_full(qs.shape[:-1] + (1,), NEG_INF)
+    step = chunk or block_k
+    qf, kf, vf = q.float(), k.float(), v.float()
+    bf16_p = q.dtype == torch.bfloat16
+    acc = torch.zeros_like(qf)
+    m = qf.new_full(qf.shape[:-1] + (1,), NEG_INF)
     l = torch.zeros_like(m)
     for k0 in range(0, t, block_k):
-        nk = min(block_k, t - k0)
-        for c0 in range(0, nk, chunk):
-            # a chunk's masked slots (-1e30) change neither its max nor,
-            # at p = exp(-1e30 - m) = 0, its sums: only its real keys count
-            lo = k0 + c0
-            n = min(chunk, t - lo)
-            s = torch.matmul(qs, kf[..., lo:lo + n, :].transpose(-1, -2))
+        end = min(k0 + block_k, t)
+        for lo in range(k0, end, step):
+            # a tile's masked keys (-1e30) change neither its max nor, at
+            # p = exp(-1e30 - m) = 0, its sums: only its real keys count
+            hi = min(lo + step, end)
+            s = torch.matmul(qf, kf[..., lo:hi, :].transpose(-1, -2)) * scale
             m_new = torch.maximum(m, s.amax(-1, keepdim=True))
             alpha = torch.exp(m - m_new)
             p = torch.exp(s - m_new)
-            acc = acc * alpha + torch.matmul(p, vf[..., lo:lo + n, :])
+            vt = vf[..., lo:hi, :]
+            if bf16_p:
+                p_hi = p.bfloat16().float()
+                pv = torch.matmul(p_hi, vt)
+                if split_p:
+                    pv = pv + torch.matmul((p - p_hi).bfloat16().float(), vt)
+            else:
+                pv = torch.matmul(p, vt)
+            acc = acc * alpha + pv
             l = alpha * l + p.sum(-1, keepdim=True)
             m = m_new
     return (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
 
 
+def _vectorizable(x: torch.Tensor) -> bool:
+    """The 16-byte route's preconditions on one (B, H, T, D) tensor:
+    d-stride 1, D % 8 == 0, a 16-byte aligned base and b/h/t strides in
+    whole 16-byte units wherever the dimension has more than one entry."""
+    (b, h, t, d), (sb, sh, st, sd) = x.shape, x.stride()
+    return (d % 8 == 0 and sd == 1 and x.data_ptr() % 16 == 0 and (b == 1 or sb % 8 == 0)
+            and (h == 1 or sh % 8 == 0) and (t == 1 or st % 8 == 0))
+
+
+def pick_route(*tensors: torch.Tensor) -> str:
+    """The kernel that `flash_attention` launches for these tensors (q, k, v
+    and, in `_launch`, out): 'cuda_core' for f32; for bf16 'tc_vec' (the
+    tensor-core kernel with cp.async loads) when every tensor is
+    `_vectorizable`, else 'tc_elementwise' (the same kernel, element-wise
+    loads and stores through the strides)."""
+    if tensors[0].dtype == torch.float32:
+        return "cuda_core"
+    return "tc_vec" if all(_vectorizable(x) for x in tensors) else "tc_elementwise"
+
+
 @functools.lru_cache(maxsize=None)
 def _library():
+    """The kernels' library, built from csrc/flash_attention.cu."""
     from audiolcm_torch.build import build
 
     lib = ctypes.CDLL(str(build("flash_attention")))
@@ -84,20 +127,23 @@ def _library():
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_TC
     b, h, t, d = q.shape
     # written in the (B, T, H, D) layout the output projection reads, so
     # out.transpose(1, 2).reshape(B, T, H*D) is a view
     out = torch.empty(b, t, h, d, device=q.device, dtype=q.dtype).transpose(1, 2)
+    route = pick_route(q, k, v, out)
     strides = (ctypes.c_longlong * 16)(*(s for x in (q, k, v, out) for s in x.stride()))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = _library().flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides, b, h, t, d,
-            float(scale), int(q.dtype == torch.bfloat16), stream)
+            float(scale), ROUTES[route], stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"flash_attention kernel launch failed ({route}): CUDA error {rc}")
     LAUNCHES += 1
+    if route != "cuda_core":
+        LAUNCHES_TC += 1
     return out
 
 
@@ -105,8 +151,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float) -> torch.Tensor:
     """q, k, v: (B, H, T, D) -> (B, H, T, D); softmax over keys in f32.
 
-    On a CUDA tensor this launches the sm_90a kernel or raises; on a CPU
-    tensor it runs the plain version. q, k and v may be strided views (head
+    On a CUDA tensor this launches an sm_90a kernel (bf16: tensor cores,
+    f32: CUDA cores) or raises; on a CPU tensor it runs the plain version. q, k and v may be strided views (head
     splits, chunks of a fused qkv projection): the kernel reads them in
     place."""
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:

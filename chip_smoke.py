@@ -7,12 +7,14 @@
 Phases, one JSON line each; any failure raises and exits non-zero:
   1. card     — device name and count, nvidia-smi name and power limit
   2. build    — every csrc/*.cu compiled with nvcc for sm_90a, one nvcc per
-                source, all started together (ptxas stats)
+                source, all started together (ptxas stats; the HMMA count
+                of each bf16 flash-attention kernel's SASS, which must be > 0)
   3. check    — each kernel against its plain PyTorch version on the card at
                 the main paths' shapes (f32 with TF32 off, and bf16): the AMP
                 stage K1, K1 at each stage variant of the profiler, its
-                per-item forms K2a/K2b, flash attention K3, the activation
-                chain K4
+                per-item forms K2a/K2b, flash attention K3 (f32 on its
+                CUDA-core kernel, bf16 on its tensor-core kernel through the
+                16-byte or the element-wise loads), the activation chain K4
   4. time     — each kernel, its plain version, the bound and (K3) the
                 library call, bf16; the unfused vocoder's two alias-free
                 activation forms at every stage width
@@ -20,9 +22,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                 a seed): batch 1 f32 with the fused stage against the
                 unfused vocoder (before the final tanh); then the batch-8
                 10 s generate with the launch counts of its path, ms per
-                generate, x realtime and a per-layer breakdown
+                generate, x realtime and a per-layer breakdown; the same
+                generate with use_flash=True (launch counts, ms)
   6. teacher  — one full-width DiT forward at CFG batch 4 in f32, flash
-                against einsum attention; then the teacher path: batch-8
+                against einsum attention, and in bf16, flash and einsum each
+                against the f32 einsum eps; then the teacher path: batch-8
                 10 s DDIM-100 generate with guidance 5 and flash attention
                 (DiT batch 16), its launch counts, ms, breakdown and
                 profile, and a PLMS-25 generate's launch counts
@@ -133,13 +137,24 @@ def card_phase(device) -> dict:
 
 
 def build_phase() -> dict:
-    from audiolcm_torch.build import build_all
+    """Build every source; ptxas' per-kernel lines; the HMMA (tensor-core
+    mma) count in the SASS of each flash-attention kernel: > 0 for every
+    bf16 tensor-core instantiation, 0 for the f32 CUDA-core one."""
+    from audiolcm_torch.build import build_all, sass_op_counts
 
     t0 = time.time()
     logs = build_all()
-    stats = {k: [ln.strip() for ln in v.splitlines()
-                 if "registers" in ln or "spill" in ln or "smem" in ln] for k, v in logs.items()}
-    return {"seconds": round(time.time() - t0, 1), "ptxas": stats}
+    seconds = round(time.time() - t0, 1)
+    keys = ("entry function", "registers", "spill", "smem")
+    stats = {k: [ln.strip() for ln in v.splitlines() if any(w in ln for w in keys)]
+             for k, v in logs.items()}
+    hmma = sass_op_counts("flash_attention", "HMMA")
+    row = {"seconds": seconds, "ptxas": stats, "flash_attention_sass_hmma": hmma}
+    tc = [n for fn, n in hmma.items() if "tc_kernel" in fn]
+    if not tc or min(tc) == 0:
+        emit({"phase": "build", **row})
+        raise AssertionError(f"a bf16 flash-attention kernel has no HMMA in its SASS: {hmma}")
+    return row
 
 
 def check_phase(device, shapes, rehearsal: bool) -> list:
@@ -295,26 +310,41 @@ def flash_inputs(shape, device, qkv_views: bool, seed: int):
 
 
 def check_flash_phase(device, cases) -> list:
-    """K3 against its plain version: f32 max abs error <= FLASH_TOL, and the
-    bf16 mean error against the f32 plain result at most 1.02x the plain
-    bf16 path's."""
+    """K3 against its plain version: f32 (the CUDA-core kernel) max abs
+    error <= FLASH_TOL; bf16 (the tensor-core kernel, on the route each case
+    names) mean error against the f32 plain result at most 1.02x the plain
+    bf16 path's. On the card each f32 call adds one to LAUNCHES only, each
+    bf16 call one to LAUNCHES and one to LAUNCHES_TC."""
     from audiolcm_torch.nn import flash_attention as FA
 
+    on_card = device.type == "cuda"
+    counts = lambda: (FA.LAUNCHES, FA.LAUNCHES_TC)
+    step = lambda a, b: [b[0] - a[0], b[1] - a[1]]
     rows = []
-    for i, (shape, views) in enumerate(cases):
+    for i, (shape, views, route) in enumerate(cases):
         q, k, v = flash_inputs(shape, device, views, seed=100 + i)
         scale = shape[-1] ** -0.5
         plain = FA.flash_attention_plain(q, k, v, scale)
+        n0 = counts()
         err = (FA.flash_attention(q, k, v, scale) - plain).abs().max().item()
+        n1 = counts()
         qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
-        kerr = (FA.flash_attention(qb, kb, vb, scale).float() - plain).abs().mean().item()
-        perr = (FA.flash_attention_plain(qb, kb, vb, scale).float() - plain).abs().mean().item()
+        kb16 = FA.flash_attention(qb, kb, vb, scale).float()
+        n2 = counts()
+        pb16 = FA.flash_attention_plain(qb, kb, vb, scale).float()
+        kerr = (kb16 - plain).abs().mean().item()
+        perr = (pb16 - plain).abs().mean().item()
         sync(device)
         row = {"kernel": "flash_attention", "shape": list(shape), "qkv_chunk_views": views,
+               "f32_route": FA.pick_route(q, k, v), "bf16_route": FA.pick_route(qb, kb, vb),
                "f32_max_abs_err": err, "f32_tol": FLASH_TOL, "bf16_mean_err": kerr,
-               "plain_bf16_mean_err": perr}
+               "plain_bf16_mean_err": perr,
+               "bf16_max_abs_err_vs_plain_bf16": (kb16 - pb16).abs().max().item(),
+               "launches_f32_call": step(n0, n1), "launches_bf16_call": step(n1, n2)}
         emit({"phase": "check", **row})
-        if not (err <= FLASH_TOL and kerr <= perr * 1.02):
+        want = ([1, 0], [1, 1]) if on_card else ([0, 0], [0, 0])
+        if not (err <= FLASH_TOL and kerr <= perr * 1.02 and row["bf16_route"] == route
+                and (row["launches_f32_call"], row["launches_bf16_call"]) == want):
             raise AssertionError(f"flash_attention disagrees with its plain version: {row}")
         rows.append(row)
     return rows
@@ -357,7 +387,7 @@ def time_flash_phase(device, shape, card: dict) -> dict:
 
     q, k, v = (a.bfloat16() for a in flash_inputs(shape, device, False, seed=7))
     scale = shape[-1] ** -0.5
-    row = {"shape": list(shape), "dtype": "bfloat16",
+    row = {"shape": list(shape), "dtype": "bfloat16", "route": FA.pick_route(q, k, v),
            "ms": event_ms(lambda: FA.flash_attention(q, k, v, scale), iters=50, warmup=3),
            "plain_ms": event_ms(lambda: FA.flash_attention_plain(q, k, v, scale), iters=20,
                                 warmup=2),
@@ -494,7 +524,7 @@ def reset_counts() -> None:
     from audiolcm_torch.nn import amp_stage as A
     from audiolcm_torch.nn import flash_attention as FA
 
-    A.LAUNCHES = A.LAUNCHES_TC = A.LAUNCHES_CL = FA.LAUNCHES = K.LAUNCHES = 0
+    A.LAUNCHES = A.LAUNCHES_TC = A.LAUNCHES_CL = FA.LAUNCHES = FA.LAUNCHES_TC = K.LAUNCHES = 0
 
 
 def read_counts() -> dict:
@@ -504,7 +534,7 @@ def read_counts() -> dict:
 
     return {"amp_stage": A.LAUNCHES, "amp_stage_tc": A.LAUNCHES_TC,
             "amp_stage_cl": A.LAUNCHES_CL, "flash_attention": FA.LAUNCHES,
-            "act_chain": K.LAUNCHES}
+            "flash_attention_tc": FA.LAUNCHES_TC, "act_chain": K.LAUNCHES}
 
 
 def set_flash(dit: torch.nn.Module, on: bool) -> None:
@@ -562,7 +592,8 @@ def generate_phase(device, mods, full: bool, card: dict) -> dict:
     ok = (tuple(wav.shape) == expect and bool(torch.isfinite(wav).all())
           and wav.abs().max().item() <= 1.0
           and launches == {"amp_stage": 2 if on_card else 0, "amp_stage_tc": 0,
-                           "amp_stage_cl": 0, "flash_attention": 0, "act_chain": 0})
+                           "amp_stage_cl": 0, "flash_attention": 0, "flash_attention_tc": 0,
+                           "act_chain": 0})
     row = {"batch": batch, "wav_shape": list(wav.shape), "mel_shape": list(mel.shape),
            "finite": bool(torch.isfinite(wav).all()), "wav_abs_max": wav.abs().max().item(),
            "wav_std": wav.std().item(),
@@ -584,15 +615,23 @@ def generate_phase(device, mods, full: bool, card: dict) -> dict:
                                      ms)
     else:
         row.update(ms_per_generate="not measured", x_realtime="not measured")
-    # the same LCM generate with use_flash=True: its flash launches only
+    # the same LCM generate with use_flash=True: its flash launches, and its
+    # ms for information (the serving default stays the einsum path)
     set_flash(pipe.modules.dit, True)
     reset_counts()
     pipe.generate(ids[0], ids[1], latent, generator=gen)
     sync(device)
     row["launches_with_flash"] = read_counts()
+    if on_card:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            pipe.generate(ids[0], ids[1], latent, generator=gen)
+        torch.cuda.synchronize()
+        row["ms_per_generate_with_flash"] = 1e3 * (time.perf_counter() - t0) / iters
     set_flash(pipe.modules.dit, False)
     n_flash = 2 * len(pipe.modules.dit.blocks) * 2 if on_card else 0  # 2 LCM steps
-    if row["launches_with_flash"]["flash_attention"] != n_flash:
+    if not (row["launches_with_flash"]["flash_attention"]
+            == row["launches_with_flash"]["flash_attention_tc"] == n_flash):
         raise AssertionError(f"LCM generate with flash: {row['launches_with_flash']}")
     emit({"phase": "generate", **row})
     return row
@@ -616,10 +655,11 @@ def layer_breakdown(pipe, ids, latent: int, gen) -> dict:
     return out
 
 
-def profile_run(run, wall_ms: float, top: int = 8) -> dict:
+def profile_run(run, wall_ms: float, top: int = 8, watch: tuple = ()) -> dict:
     """torch.profiler over one call of run() (a generate): device busy time,
-    idle share against the host-clock ms of that generate, and the kernels
-    that take most of the device time."""
+    idle share against the host-clock ms of that generate, the kernels that
+    take most of the device time, and every kernel whose name holds one of
+    `watch`."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -631,10 +671,12 @@ def profile_run(run, wall_ms: float, top: int = 8) -> dict:
               if e.device_type == torch.autograd.DeviceType.CUDA and self_us(e) > 0]
     busy_ms = sum(self_us(e) for e in events) / 1e3
     events.sort(key=self_us, reverse=True)
+    row = lambda e: {"name": e.key[:90], "ms": self_us(e) / 1e3, "calls": e.count,
+                     "share": self_us(e) / 1e3 / busy_ms}
     return {"device_busy_ms": busy_ms,
             "idle_share": (1.0 - busy_ms / wall_ms) if busy_ms else "not measured",
-            "top_kernels": [{"name": e.key[:90], "ms": self_us(e) / 1e3, "calls": e.count,
-                             "share": self_us(e) / 1e3 / busy_ms} for e in events[:top]]}
+            "top_kernels": [row(e) for e in events[:top]],
+            "watched": [row(e) for e in events if any(w in e.key for w in watch)]}
 
 
 def dit_kwargs(full: bool) -> dict:
@@ -646,7 +688,11 @@ def dit_kwargs(full: bool) -> dict:
 def teacher_check_phase(device, full: bool) -> dict:
     """One DiT forward at batch 2 with CFG doubling (B = 4, T = 1 + 154 +
     312 = 467 at full width), f32 with TF32 off: use_flash=True against
-    use_flash=False, max abs error of eps against DIT_TOL."""
+    use_flash=False, max abs error of eps against DIT_TOL. Then the same DiT
+    and inputs in bf16: the mean error of eps with flash (the tensor-core
+    kernel, one launch per self-attention) against the f32 einsum eps at
+    most 1.02x the bf16 einsum path's."""
+    from audiolcm_torch.nn import flash_attention as FA
     from audiolcm_torch.models.dit import ConcatDiT2MLP
 
     latent = 312 if full else 16
@@ -672,7 +718,26 @@ def teacher_check_phase(device, full: bool) -> dict:
     emit({"phase": "teacher_f32_check", **row})
     if not err <= DIT_TOL:
         raise AssertionError(f"DiT eps with flash attention vs einsum: {row}")
-    return row
+    dit = dit.to(torch.bfloat16)
+    with torch.inference_mode():
+        bf16_err, n_tc = {}, 0
+        for flash in (False, True):
+            set_flash(dit, flash)
+            n0 = FA.LAUNCHES_TC
+            out = dit(x2.bfloat16(), t2, c2.bfloat16(), None).float()
+            sync(device)
+            n_tc += FA.LAUNCHES_TC - n0
+            bf16_err[flash] = (out - eps[False]).abs().mean().item()
+    n_attn = 2 * len(dit.blocks)
+    row_b = {"batch": 2, "dit_batch": 4, "seq": 1 + 154 + latent, "dtype": "bfloat16",
+             "flash_eps_mean_err": bf16_err[True], "einsum_eps_mean_err": bf16_err[False],
+             "ratio": bf16_err[True] / bf16_err[False], "bar": 1.02,
+             "tc_launches": n_tc}
+    emit({"phase": "teacher_bf16_check", **row_b})
+    if not (bf16_err[True] <= 1.02 * bf16_err[False]
+            and n_tc == (n_attn if device.type == "cuda" else 0)):
+        raise AssertionError(f"bf16 DiT eps with flash attention vs the f32 golden: {row_b}")
+    return {"f32": row, "bf16": row_b}
 
 
 def teacher_generate(pipe, ids, uc_ids, latent: int, gen, steps: int = 100,
@@ -714,8 +779,9 @@ def teacher_phase(device, mods, full: bool, card: dict) -> dict:
            "guidance": GUIDANCE, "wav_shape": list(wav.shape), "mel_shape": list(mel.shape),
            "finite": bool(torch.isfinite(wav).all()), "wav_abs_max": wav.abs().max().item(),
            "wav_std": wav.std().item(), "launches": launches}
+    n_flash = n_attn * n_steps if on_card else 0
     want = {"amp_stage": 2 if on_card else 0, "amp_stage_tc": 0, "amp_stage_cl": 0,
-            "flash_attention": n_attn * n_steps if on_card else 0, "act_chain": 0}
+            "flash_attention": n_flash, "flash_attention_tc": n_flash, "act_chain": 0}
     if not (tuple(wav.shape) == expect and row["finite"] and row["wav_abs_max"] <= 1.0
             and launches == want):
         emit({"phase": "teacher", **row})
@@ -731,7 +797,7 @@ def teacher_phase(device, mods, full: bool, card: dict) -> dict:
         row.update(ms_per_generate=ms, x_realtime=batch * expect[1] / 16000 / (ms / 1e3),
                    peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, card=card["nvidia_smi"])
         row["breakdown_ms"] = teacher_breakdown(pipe, ids, uc_ids, latent, gen)
-        row["profile"] = profile_run(run, ms)
+        row["profile"] = profile_run(run, ms, watch=("flash_attention",))
     else:
         row.update(ms_per_generate="not measured", x_realtime="not measured")
     # PLMS, 25 steps: one more DiT forward at step 0
@@ -744,7 +810,8 @@ def teacher_phase(device, mods, full: bool, card: dict) -> dict:
         plms["ms_one_generate"] = 1e3 * (time.perf_counter() - t0)
     row["plms"] = plms
     n_plms = n_attn * (len(make_ddim_timesteps(25)) + 1) if on_card else 0
-    if not (plms["finite"] and plms["launches"]["flash_attention"] == n_plms):
+    if not (plms["finite"] and plms["launches"]["flash_attention"]
+            == plms["launches"]["flash_attention_tc"] == n_plms):
         emit({"phase": "teacher", **row})
         raise AssertionError(f"PLMS-25 check failed: {plms}, flash launches expected {n_plms}")
     set_flash(mods.dit, False)
@@ -800,7 +867,7 @@ def interior_phase(device, shapes, card: dict, rehearsal: bool) -> dict:
     per_row = 0 if rehearsal else (1 + iters) * len(shapes)  # warm-up + iters per row
     n_k1, n_k4 = 6 * per_row, 2 * per_row  # 6 stage rows, 2 act rows
     if launches != {"amp_stage": n_k1, "amp_stage_tc": 0, "amp_stage_cl": 0,
-                    "flash_attention": 0, "act_chain": n_k4}:
+                    "flash_attention": 0, "flash_attention_tc": 0, "act_chain": n_k4}:
         raise AssertionError(f"profiler run: launches {launches}, expected K1 {n_k1}, K4 {n_k4}")
     return {"launches": launches, "tables": tables}
 
@@ -979,7 +1046,7 @@ def roundtrip_phase(device, full: bool, card: dict) -> dict:
 
 
 def kernels_line(checks, k2_checks, flash_checks, times, k2_times, flash_time, gen_row,
-                 teacher_row, act_checks, act_times, interior) -> dict:
+                 teacher_row, act_checks, act_times, interior, build_row) -> dict:
     """One entry per kernel: launches on its path (K1: the LCM generate;
     K3: the teacher generate; K4: the profiler run; K2a/K2b lie on none),
     the largest f32 error of its checks, and this run's times (K1/K2: both
@@ -1010,11 +1077,20 @@ def kernels_line(checks, k2_checks, flash_checks, times, k2_times, flash_time, g
                                        if r["kernel"] == name),
                     "ms": sum(k2_times[(name, *s)] for s in stage_shapes) if measured else nm,
                     **common})
+    hmma = build_row.get("flash_attention_sass_hmma")
     out.append({"name": "flash_attention", "route": "cuda",
+                "units": "tensor cores (mma.sync m16n8k16 bf16, f32 sums) for bf16; "
+                         "CUDA cores for f32",
                 "source": "audiolcm_torch/csrc/flash_attention.cu",
                 "replaces": "audiolcm_tpu/nn/pallas_attention.py:72 flash_attention",
                 "launches": teacher_row["launches"]["flash_attention"],
+                "launches_tc": teacher_row["launches"]["flash_attention_tc"],
                 "max_abs_err": max(r["f32_max_abs_err"] for r in flash_checks),
+                "bf16_max_abs_err_vs_plain_bf16": max(r["bf16_max_abs_err_vs_plain_bf16"]
+                                                      for r in flash_checks),
+                "bf16_mean_err_ratio_max": max(r["bf16_mean_err"] / r["plain_bf16_mean_err"]
+                                               for r in flash_checks),
+                "sass_hmma": hmma if hmma is not None else nm,
                 **{k: flash_time.get(k, nm) for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                       "library_ms")},
                 "shape": flash_time.get("shape", nm),
@@ -1049,17 +1125,25 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     card = card_phase(device)
     emit({"phase": "card", **card})
+    build_row = {}
     if not rehearsal:
-        emit({"phase": "build", **build_phase()})
+        build_row = build_phase()
+        emit({"phase": "build", **build_row})
     shapes = [(48, 79872), (24, 159744), (48, 79872 - 77)] if not rehearsal else [(6, 700)]
     checks = check_phase(device, shapes, rehearsal)
     checks += check_variants_phase(device, shapes, rehearsal)
     k2_checks = check_k2_phase(device, shapes[:2], rehearsal)
     # the teacher's DiT attention (CFG batch 16, T = 467), the longest DiT
-    # sequence (max_len 1000), a short head, and the chunk views of to_qkv
-    flash_cases = ([((16, 8, 467, 72), False), ((2, 8, 1000, 72), False),
-                    ((1, 2, 100, 8), False), ((16, 8, 467, 72), True)]
-                   if not rehearsal else [((2, 2, 37, 8), False), ((2, 2, 37, 8), True)])
+    # sequence (max_len 1000), a short head, the chunk views of to_qkv, a
+    # head (D = 33) that only the element-wise loads take, and the widest
+    # heads the kernel takes (D = 64, 128)
+    flash_cases = ([((16, 8, 467, 72), False, "tc_vec"), ((2, 8, 1000, 72), False, "tc_vec"),
+                    ((1, 2, 100, 8), False, "tc_vec"), ((16, 8, 467, 72), True, "tc_vec"),
+                    ((2, 3, 5, 33), False, "tc_elementwise"), ((2, 4, 300, 64), False, "tc_vec"),
+                    ((2, 2, 200, 128), False, "tc_vec")]
+                   if not rehearsal else [((2, 2, 37, 8), False, "tc_vec"),
+                                          ((2, 2, 37, 8), True, "tc_vec"),
+                                          ((2, 3, 5, 33), False, "tc_elementwise")])
     flash_checks = check_flash_phase(device, flash_cases)
     act_checks = check_act_phase(device, shapes, rehearsal)
     times, k2_times, flash_time, act_times = {}, {}, {}, []
@@ -1079,7 +1163,7 @@ def main(argv=None) -> int:
         vocode_phase(device, full=not rehearsal, card=card, tmp=tmp)
     roundtrip_phase(device, full=not rehearsal, card=card)
     emit(kernels_line(checks, k2_checks, flash_checks, times, k2_times, flash_time, gen_row,
-                      teacher_row, act_checks, act_times, interior))
+                      teacher_row, act_checks, act_times, interior, build_row))
     if rehearsal:
         emit({"rehearsal": True, "ok": True})
         return 0
