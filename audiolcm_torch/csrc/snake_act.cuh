@@ -1,7 +1,7 @@
 // Device helpers shared by the AMP stage (amp_stage.cu, K1) and the
-// activation chain (act_chain.cu, K4): element loads and stores in the I/O
-// type, the polynomial cos and the SnakeBeta nonlinearity. Both kernels
-// compute in f32 and round once to the I/O type.
+// activation chain (act_chain.cu, K4): the polynomial cos and the SnakeBeta
+// nonlinearity, and K4's element loads and stores in its I/O type. Both
+// kernels compute in f32 and round once to the I/O type.
 //
 // audiolcm_torch/build.py hashes this header into every library's name, so
 // an edited header rebuilds both kernels.

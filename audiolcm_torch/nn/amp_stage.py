@@ -1,25 +1,31 @@
-"""Fused BigVGAN AMP stage: the CUDA kernel K1 (`csrc/amp_stage.cu`), its
-plain PyTorch version, and the per-tile math the kernel implements.
+"""Fused BigVGAN AMP stage: the CUDA kernels of K1 (`csrc/amp_stage.cu`),
+their plain PyTorch version, and the per-tile math the kernels implement.
 
 One stage = `len(kernel_sizes)` resblocks, each `len(dilations)` sub-units
 of (alias-free SnakeBeta -> dilated conv -> alias-free SnakeBeta -> conv)
 plus the residual; the output is the mean of the resblocks. It replaces the
 TPU kernel `audiolcm_tpu/nn/pallas_amp_stage.py:fused_amp_stage_cl_batched`.
 
-  * `fused_amp_stage` — the wrapper. A CUDA tensor launches the kernel (or
-    raises); a CPU tensor runs `fused_amp_stage_plain`.
+  * `fused_amp_stage` — the wrapper. A CUDA tensor launches a kernel (or
+    raises): bf16 goes to the tensor-core kernel ("mma": bf16 conv operands,
+    f32 sums and residual), f32 to the CUDA-core kernel ("cuda_core": f32
+    throughout), as `pick_route` says; a CPU tensor runs
+    `fused_amp_stage_plain`.
   * `fused_amp_stage_tc` / `fused_amp_stage_cl` — the same function with
     the launch structure of the TPU kernels `fused_amp_stage` (K2a) and
-    `fused_amp_stage_cl` (K2b): one launch of the same CUDA kernel per batch
-    element.
+    `fused_amp_stage_cl` (K2b): one launch of the same CUDA kernels per
+    batch element.
   * `fused_amp_stage_plain` — the same stage in plain torch ops with the
     unfused path's edge rules (`resample_cf.alias_free_snake_cf`,
     `conv1d_cf`). Used by the CPU tests and by chip_smoke's comparison.
   * `stage_valid_cl` / `valid_alias_free_snake_cl` — the padding-free
     ("valid") stage math on one (C, L) window, as the JAX package defines it.
-  * `stage_tiles_emulated` — the kernel's own algorithm (tile + halo, each
-    op shrinking its valid range, edges in global coordinates) in torch, so
-    the CPU tests hold the kernel's decomposition against the JAX package.
+  * `stage_tiles_emulated` — the kernels' own algorithm (tile + halo, each
+    op shrinking its valid range, edges in global coordinates, and each
+    route's rounding points) in torch, so the CPU tests hold the kernels'
+    decomposition against the JAX package.
+  * `pack_stage_params_mma` / `pack_conv_mma` — the tensor-core kernel's
+    weights, bf16 pairs in mma fragment order.
 
 stage_params[b]["sub"][s] = {a1, b1, w1, c1b, a2, b2, w2, c2b}: snake
 alpha/beta already exponentiated (linear scale), conv weights in the torch
@@ -40,14 +46,20 @@ from audiolcm_torch.nn.resample_cf import alias_free_snake_cf, conv1d_cf
 from audiolcm_torch.nn.snake import snake_binv
 
 # Kernel launches since the last reset (chip_smoke sets them to 0 around a
-# run): by fused_amp_stage (K1), fused_amp_stage_tc (K2a), fused_amp_stage_cl (K2b).
+# run): by fused_amp_stage (K1), fused_amp_stage_tc (K2a), fused_amp_stage_cl
+# (K2b), on either route; and every launch of the tensor-core kernel, by any
+# of the three.
 LAUNCHES = 0
 LAUNCHES_TC = 0
 LAUNCHES_CL = 0
+LAUNCHES_MMA = 0
 
 R_ACT = 6  # receptive radius of the alias-free activation
 SMEM_BYTES = 232448  # H100: shared memory one block can use
 EO_GROUP = 8  # must match csrc/amp_stage.cu
+MMA_MAX_C = 64  # the tensor-core kernel's widest C (8 n8 tiles); csrc MMA_MAX_NT
+MMA_PAD_ROWS = 16  # csrc PAD_ROWS
+MAX_TILE = 512  # the longest tile either kernel runs (reached at narrow C)
 ACCUM_MODES = ("bf16", "f32")
 CONV_MODES = ("tap", "mstack", "kstack")
 
@@ -67,13 +79,55 @@ def smem_bytes(c: int, tile: int, r: int) -> int:
     return 4 * (3 * c * n + c * tile + 2 * EO_GROUP * n)
 
 
-def pick_tile(c: int, r: int, max_tile: int = 512) -> int:
-    """Largest multiple of 32 (<= max_tile) whose shared-memory footprint
-    fits one block: 128 at C=48 and 352 at C=24 for r=96."""
-    for tile in range(max_tile, 31, -32):
+def pick_tile(c: int, r: int) -> int:
+    """The CUDA-core kernel's tile: the largest multiple of 32 (<= MAX_TILE)
+    whose shared-memory footprint fits one block: 128 at C=48 and 352 at
+    C=24 for r=96."""
+    for tile in range(MAX_TILE, 31, -32):
         if smem_bytes(c, tile, r) <= SMEM_BYTES:
             return tile
     raise ValueError(f"fused AMP stage: C={c} does not fit shared memory at radius {r}")
+
+
+def mma_pitches(c: int, n: int) -> tuple:
+    """(NP, HP) of the tensor-core kernel for a window of n samples: the f32
+    residual's row pitch NP = n rounded up to 4 mod 8 floats, and the bf16
+    channels-last rows' pitch HP, C rounded up to an odd number of 8-channel
+    (16-byte) units."""
+    ng = -(-c // 8)
+    return n + (4 - n) % 8, 8 * (ng if ng % 2 else ng + 1)
+
+
+def smem_bytes_mma(c: int, tile: int, r: int) -> int:
+    """The tensor-core kernel's shared memory: RES (C x NP) and ACC (C x
+    tile) f32, the (N, 8) f32 up-phases E and O, and H ((N + pad rows) x HP)
+    and G (N x HP) bf16."""
+    n = tile + 2 * r
+    np_, hp = mma_pitches(c, n)
+    return 4 * (c * np_ + c * tile + 2 * EO_GROUP * n) + 2 * hp * (2 * n + MMA_PAD_ROWS)
+
+
+def pick_tile_mma(c: int, r: int) -> int:
+    """The tensor-core kernel's tile: the largest multiple of 16 (<=
+    MAX_TILE) whose footprint fits one block: 192 at C=48 and 512 at C=24
+    for r=96."""
+    if c > MMA_MAX_C:
+        raise ValueError(f"fused AMP stage: the tensor-core kernel takes C <= {MMA_MAX_C}, "
+                         f"got C={c}")
+    for tile in range(MAX_TILE, 15, -16):
+        if smem_bytes_mma(c, tile, r) <= SMEM_BYTES:
+            return tile
+    raise ValueError(f"fused AMP stage: C={c} does not fit shared memory at radius {r}")
+
+
+def pick_route(x: torch.Tensor) -> str:
+    """The kernel that a CUDA tensor of x's dtype launches: "mma" (the
+    tensor-core kernel) for bf16, "cuda_core" for f32."""
+    return "mma" if x.dtype == torch.bfloat16 else "cuda_core"
+
+
+def route_tile(route: str, c: int, r: int) -> int:
+    return pick_tile_mma(c, r) if route == "mma" else pick_tile(c, r)
 
 
 # ---------------------------------------------------------------------------
@@ -157,16 +211,25 @@ def stage_valid_cl(x: torch.Tensor, stage_params: List[dict], kernel_sizes: Sequ
 def stage_tiles_emulated(x: torch.Tensor, stage_params: List[dict],
                          kernel_sizes: Sequence[int], dilations: Sequence[int],
                          fast: bool = False, tile: int | None = None) -> torch.Tensor:
-    """(B, T, C) -> (B, T, C) computed as csrc/amp_stage.cu does: f32 inside,
-    one window of tile + 2R samples per tile, every op over its shrinking
-    valid range, edge rules applied in global coordinates (conv inputs zero
-    outside [0, T); the activation's FIRs read their inputs clamped to the
-    first/last sample). The output is rounded to x's dtype once."""
+    """(B, T, C) -> (B, T, C) computed as csrc/amp_stage.cu does: one window
+    of tile + 2R samples per tile, every op over its shrinking valid range,
+    edge rules applied in global coordinates (conv inputs zero outside
+    [0, T); the activation's FIRs read their inputs clamped to the
+    first/last sample), the output rounded to x's dtype once.
+
+    The numerics are those of the kernel a CUDA tensor of x's dtype runs
+    (`pick_route`), and `tile` defaults to that route's tile. f32 is the
+    CUDA-core kernel: f32 inside. bf16 is the tensor-core kernel: each
+    conv's input and weights rounded to bf16, f32 sums, the first conv's
+    output (G) rounded to bf16, everything else (residual, resblock mean,
+    activations) f32."""
     up_e, up_o, dn_e, dn_o = alias_free_taps()
     b, t, c = x.shape
     r = stage_radius(kernel_sizes, dilations)
-    tile = tile or pick_tile(c, r)
+    route = pick_route(x)
+    tile = tile or route_tile(route, c, r)
     n = tile + 2 * r
+    rnd = (lambda v: v.bfloat16().float()) if route == "mma" else (lambda v: v)
     xc = x.transpose(1, 2).float()
     sp = [{"sub": [{k: v.float() for k, v in s.items()} for s in blk["sub"]]}
           for blk in stage_params]
@@ -204,7 +267,8 @@ def stage_tiles_emulated(x: torch.Tensor, stage_params: List[dict],
         def conv(inp, lo, hi, w, bias, d):
             half = (w.shape[-1] - 1) // 2 * d
             res = torch.zeros_like(inp)
-            res[..., lo:hi] = F.conv1d(inp[..., lo - half:hi + half], w, bias, dilation=d)
+            res[..., lo:hi] = F.conv1d(rnd(inp[..., lo - half:hi + half]), rnd(w), bias,
+                                       dilation=d)
             return res
 
         window = torch.zeros(b, c, n)
@@ -219,7 +283,7 @@ def stage_tiles_emulated(x: torch.Tensor, stage_params: List[dict],
                 h = act(res, lo + 6, hi - 6, p["a1"], p["b1"])
                 lo, hi = lo + 6, hi - 6
                 h1 = (k - 1) // 2 * d
-                h = conv(h, lo + h1, hi - h1, p["w1"], p["c1b"], d)
+                h = rnd(conv(h, lo + h1, hi - h1, p["w1"], p["c1b"], d))
                 lo, hi = lo + h1, hi - h1
                 h = act(h, lo + 6, hi - 6, p["a2"], p["b2"])
                 lo, hi = lo + 6, hi - 6
@@ -252,11 +316,11 @@ def _library():
     from audiolcm_torch.build import build
 
     lib = ctypes.CDLL(str(build("amp_stage")))
-    lib.amp_stage_launch.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-        + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-           ctypes.c_void_p, ctypes.c_void_p])
-    lib.amp_stage_launch.restype = ctypes.c_int
+    args = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+            + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+    for fn in (lib.amp_stage_launch, lib.amp_stage_mma_launch):
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -278,38 +342,87 @@ def check_stage_params(stage_params: List[dict], kernel_sizes: Sequence[int],
                                      f"expected {want}")
 
 
+def _pack_vectors(stage_params: List[dict]) -> torch.Tensor:
+    """Per sub-unit alpha1, 1/(beta1+1e-9), bias1, alpha2, 1/(beta2+1e-9),
+    bias2, f32, as both kernels read them."""
+    subs = [p for blk in stage_params for p in blk["sub"]]
+    col = lambda name: torch.stack([p[name] for p in subs]).float()  # (sub-units, C)
+    return torch.stack([col("a1"), 1.0 / (col("b1") + 1e-9), col("c1b"),
+                        col("a2"), 1.0 / (col("b2") + 1e-9), col("c2b")], 1).reshape(-1)
+
+
 def pack_stage_params(stage_params: List[dict], device) -> tuple:
-    """(weights, vectors) as the kernel reads them, f32 on `device`."""
-    ws, vecs = [], []
+    """(weights, vectors) as the CUDA-core kernel reads them, f32 on `device`."""
+    ws = [p[n].float().reshape(-1) for blk in stage_params for p in blk["sub"]
+          for n in ("w1", "w2")]
+    return torch.cat(ws).to(device), _pack_vectors(stage_params).to(device)
+
+
+def pack_conv_mma(w: torch.Tensor) -> torch.Tensor:
+    """(..., C_out, C_in, k) conv weights -> their B fragments for the
+    tensor-core kernel, int32 (..., steps, NT, 32, 2): bf16 pairs, the lower
+    index in the low half.
+
+    K runs over (tap j, 8-channel group cg, channel cc), group q = j*ng + cg
+    (ng = ceil(C_in/8)), two groups per k16 step (steps = ceil(k*ng/2)); N
+    over C_out in NT = ceil(C_out/8) n8 tiles; channels past C and the group
+    past k*ng are zero. Lane g*4 + t4 of step s, tile n holds
+    B[k = 16s + 8h + 2t4 + e][n = 8n + g] in register h, half e: the
+    m16n8k16 B fragment."""
+    *lead, co, ci, k = w.shape
+    ng, nt = -(-ci // 8), -(-co // 8)
+    nq = k * ng
+    steps = -(-nq // 2)
+    wq = w.new_zeros((*lead, nt * 8, k, ng * 8), dtype=torch.bfloat16)
+    wq[..., :co, :, :ci] = w.transpose(-1, -2).to(torch.bfloat16)
+    b = w.new_zeros((*lead, nt * 8, 2 * steps, 8), dtype=torch.bfloat16)
+    b[..., :nq, :] = wq.reshape(*lead, nt * 8, nq, 8)
+    # (n, q, cc) = (tile, g, step, h, t4, e) -> (step, tile, g, t4, h, e)
+    f = b.reshape(*lead, nt, 8, steps, 2, 4, 2)
+    nl = len(lead)
+    f = f.permute(*range(nl), nl + 2, nl, nl + 1, nl + 4, nl + 3, nl + 5).contiguous()
+    return f.view(torch.int32).reshape(*lead, steps, nt, 32, 2)
+
+
+def pack_stage_params_mma(stage_params: List[dict], device) -> tuple:
+    """(B fragments of every conv in stage order [res][sub][conv1, conv2],
+    vectors) as the tensor-core kernel reads them, on `device`."""
+    frags = []
     for blk in stage_params:
-        for p in blk["sub"]:
-            ws += [p["w1"].float().reshape(-1), p["w2"].float().reshape(-1)]
-            b1, b2 = p["b1"].float(), p["b2"].float()
-            vecs += [p["a1"].float(), 1.0 / (b1 + 1e-9), p["c1b"].float(),
-                     p["a2"].float(), 1.0 / (b2 + 1e-9), p["c2b"].float()]
-    return torch.cat(ws).to(device), torch.cat(vecs).to(device)
+        w = torch.stack([p[n] for p in blk["sub"] for n in ("w1", "w2")]).to(device)
+        frags.append(pack_conv_mma(w).reshape(-1))
+    return torch.cat(frags), _pack_vectors(stage_params).to(device)
+
+
+def _pack(stage_params: List[dict], route: str, device) -> tuple:
+    return (pack_stage_params_mma if route == "mma" else pack_stage_params)(stage_params, device)
 
 
 def _launch_cf(xc: torch.Tensor, out: torch.Tensor, packed: tuple, kernel_sizes, dilations,
                fast) -> None:
     """One kernel launch over channels-first contiguous xc (B, C, T) into
-    out; packed = pack_stage_params(...)."""
+    out, on `pick_route(xc)`'s kernel; packed = `_pack(..., route, ...)`."""
+    global LAUNCHES_MMA
     if xc.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"fused AMP stage kernel takes float32 or bfloat16, not {xc.dtype}")
     b, c, t = xc.shape
     r = stage_radius(kernel_sizes, dilations)
+    route = pick_route(xc)
     w, vec = packed
     ks = (ctypes.c_int * len(kernel_sizes))(*kernel_sizes)
     ds = (ctypes.c_int * len(dilations))(*dilations)
     taps = (ctypes.c_float * 24)(*[v for group in alias_free_taps() for v in group])
+    lib = _library()
+    fn = lib.amp_stage_mma_launch if route == "mma" else lib.amp_stage_launch
     with torch.cuda.device(xc.device):
         stream = torch.cuda.current_stream(xc.device).cuda_stream
-        rc = _library().amp_stage_launch(
-            xc.data_ptr(), out.data_ptr(), w.data_ptr(), vec.data_ptr(), b, c, t,
-            pick_tile(c, r), r, len(kernel_sizes), len(dilations), ks, ds, int(fast),
-            int(xc.dtype == torch.bfloat16), taps, stream)
+        rc = fn(xc.data_ptr(), out.data_ptr(), w.data_ptr(), vec.data_ptr(), b, c, t,
+                route_tile(route, c, r), r, len(kernel_sizes), len(dilations), ks, ds, int(fast),
+                taps, stream)
     if rc != 0:
-        raise RuntimeError(f"amp_stage kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"amp_stage kernel launch failed ({route}): CUDA error {rc}")
+    if route == "mma":
+        LAUNCHES_MMA += 1
 
 
 def _check_stage(x: torch.Tensor, stage_params, kernel_sizes, dilations, accum: str) -> None:
@@ -321,7 +434,8 @@ def _check_stage(x: torch.Tensor, stage_params, kernel_sizes, dilations, accum: 
         raise ValueError(f"kernel sizes must be odd, got {tuple(kernel_sizes)}")
     if not (1 <= len(kernel_sizes) <= 4 and 1 <= len(dilations) <= 4):
         raise ValueError("the kernel takes 1-4 resblocks of 1-4 sub-units")
-    pick_tile(x.shape[-1], stage_radius(kernel_sizes, dilations))  # raises if C too wide
+    # raises if C is too wide for the route's kernel
+    route_tile(pick_route(x), x.shape[-1], stage_radius(kernel_sizes, dilations))
     check_stage_params(stage_params, kernel_sizes, dilations, x.shape[-1])
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused AMP stage runs on cuda or cpu, not {x.device}")
@@ -334,12 +448,14 @@ def fused_amp_stage(x: torch.Tensor, stage_params: List[dict],
     """(B, T, C) -> (B, T, C): one fused AMP stage, equal to the unfused
     stage everywhere including the first and last samples.
 
-    On a CUDA tensor this launches the sm_90a kernel once for the whole
-    batch or raises; on a CPU tensor it runs the plain version. `accum` and
-    `conv` are the JAX knobs, accepted and validated: the kernel keeps every
-    intermediate and sum in f32 (error at or below the JAX "bf16" and "f32"
-    modes), and one formulation serves all three `conv` values, which the
-    JAX package measured to give the same numbers."""
+    On a CUDA tensor this launches an sm_90a kernel once for the whole
+    batch or raises (bf16: the tensor-core kernel; f32: the CUDA-core
+    kernel); on a CPU tensor it runs the plain version. `accum` and `conv`
+    are the JAX knobs, accepted and validated: both kernels sum in f32 and
+    keep the residual and the resblock mean in f32 (error at or below the
+    JAX "bf16" and "f32" modes; bf16 rounds only the conv operands, as the
+    TPU kernel does), and one formulation serves all three `conv` values,
+    which the JAX package measured to give the same numbers."""
     global LAUNCHES
     if conv not in CONV_MODES:
         raise ValueError(f"conv must be one of {CONV_MODES}, got {conv!r}")
@@ -348,7 +464,8 @@ def fused_amp_stage(x: torch.Tensor, stage_params: List[dict],
         return fused_amp_stage_plain(x, stage_params, kernel_sizes, dilations, fast)
     xc = x.transpose(1, 2).contiguous()
     out = torch.empty_like(xc)
-    _launch_cf(xc, out, pack_stage_params(stage_params, x.device), kernel_sizes, dilations, fast)
+    _launch_cf(xc, out, _pack(stage_params, pick_route(xc), x.device), kernel_sizes, dilations,
+               fast)
     LAUNCHES += 1
     return out.transpose(1, 2)
 
@@ -366,7 +483,7 @@ def fused_amp_stage_tc(x: torch.Tensor, stage_params: List[dict],
     _check_stage(x, stage_params, kernel_sizes, dilations, accum)
     if x.device.type == "cpu":
         return fused_amp_stage_plain(x, stage_params, kernel_sizes, dilations, fast)
-    packed, outs = pack_stage_params(stage_params, x.device), []
+    packed, outs = _pack(stage_params, pick_route(x), x.device), []
     for i in range(x.shape[0]):
         xc = x[i:i + 1].transpose(1, 2).contiguous()
         out = torch.empty_like(xc)
@@ -392,7 +509,7 @@ def fused_amp_stage_cl(x: torch.Tensor, stage_params: List[dict],
         return fused_amp_stage_plain(x, stage_params, kernel_sizes, dilations, fast)
     xc = x.transpose(1, 2).contiguous()
     out = torch.empty_like(xc)
-    packed = pack_stage_params(stage_params, x.device)
+    packed = _pack(stage_params, pick_route(x), x.device)
     for i in range(x.shape[0]):
         _launch_cf(xc[i:i + 1], out[i:i + 1], packed, kernel_sizes, dilations, fast)
         LAUNCHES_CL += 1

@@ -15,17 +15,18 @@ batch 8, bf16, fast snake:
   2. dilation subsets: (1,) vs (1, 3, 5), the cost of an extra sub-unit
      (act -> conv(d) -> act -> conv(1));
   3. exact-cos: the stage with cosf in place of the polynomial cos;
-  4. accum-f32: the JAX f32-accumulation knob. The port's K1 keeps every
-     intermediate and sum in f32 in both accum modes, so this row times the
-     same launch as "full"; it stays so the table lines up with the JAX
+  4. accum-f32: the JAX f32-accumulation knob. The port's K1 sums in f32
+     and keeps the residual in f32 in both accum modes, so this row times
+     the same launch as "full"; it stays so the table lines up with the JAX
      tool's;
   5. act-only: the activation chain K4 (`nn/act_chain.py`) at n_rep 2 and
      6; the slope (n6 - n2) / 4 is one alias-free SnakeBeta unit with the
      load and store cancelled. The stage runs 2 * 3 * 3 = 18 units, so
      act_total = 18 * unit and conv + overhead = full - act_total.
 
-Each kernel runs at its own tile: K1's `pick_tile` at the variant's own
-stage radius (a subset has a smaller halo and may take a wider tile), K4's
+Each kernel runs at its own tile: K1's route's tile (bf16: the
+tensor-core kernel's `pick_tile_mma`) at the variant's own stage radius (a
+subset has a smaller halo and may take a wider tile), K4's
 `act_chain.pick_tile`. Times are CUDA events around `--iters` launches
 after one warm-up. Any failure raises.
 """
@@ -42,7 +43,7 @@ import torch
 
 from audiolcm_torch.nn.act_chain import act_chain, act_chain_tiles_emulated
 from audiolcm_torch.nn.act_chain import pick_tile as act_tile
-from audiolcm_torch.nn.amp_stage import fused_amp_stage, pick_tile, stage_radius
+from audiolcm_torch.nn.amp_stage import fused_amp_stage, pick_route, route_tile, stage_radius
 
 KS, DS = (3, 7, 11), (1, 3, 5)
 N_ACTS = 2 * len(KS) * len(DS)  # 2 acts per sub-unit x 3 dilations x 3 resblocks
@@ -100,7 +101,7 @@ def variants(x: torch.Tensor, sp: List[dict]) -> Dict[str, tuple]:
 
     def stage(ks, ds, fast, accum):
         p = subset(sp, ks, ds)
-        return (pick_tile(c, stage_radius(ks, ds)),
+        return (route_tile(pick_route(x), c, stage_radius(ks, ds)),
                 lambda: fused_amp_stage(x, p, ks, ds, fast=fast, accum=accum))
 
     def act(n):

@@ -8,16 +8,22 @@ Phases, one JSON line each; any failure raises and exits non-zero:
   1. card     — device name and count, nvidia-smi name and power limit
   2. build    — every csrc/*.cu compiled with nvcc for sm_90a, one nvcc per
                 source, all started together (ptxas stats; the HMMA count
-                of each bf16 flash-attention kernel's SASS, which must be > 0)
+                of each kernel's SASS: > 0 in every bf16 tensor-core kernel
+                of K1 and K3, 0 in K1's f32 CUDA-core kernel)
   3. check    — each kernel against its plain PyTorch version on the card at
                 the main paths' shapes (f32 with TF32 off, and bf16): the AMP
                 stage K1, K1 at each stage variant of the profiler, its
-                per-item forms K2a/K2b, flash attention K3 (f32 on its
-                CUDA-core kernel, bf16 on its tensor-core kernel through the
-                16-byte or the element-wise loads), the activation chain K4
+                per-item forms K2a/K2b (f32 on K1's CUDA-core kernel, bf16 on
+                its tensor-core kernel, counted in LAUNCHES_MMA; bf16 held
+                over the whole output, its edges and its last tile), flash
+                attention K3 (f32 on its CUDA-core kernel, bf16 on its
+                tensor-core kernel through the 16-byte or the element-wise
+                loads), the activation chain K4
   4. time     — each kernel, its plain version, the bound and (K3) the
-                library call, bf16; the unfused vocoder's two alias-free
-                activation forms at every stage width
+                library call, bf16 (K1 also its device time in the profiler
+                and, for information, its 18 convs alone through cuDNN); the
+                unfused vocoder's two alias-free activation forms at every
+                stage width
   5. generate — the LCM serving pipeline at full width (random weights from
                 a seed): batch 1 f32 with the fused stage against the
                 unfused vocoder (before the final tanh); then the batch-8
@@ -138,8 +144,9 @@ def card_phase(device) -> dict:
 
 def build_phase() -> dict:
     """Build every source; ptxas' per-kernel lines; the HMMA (tensor-core
-    mma) count in the SASS of each flash-attention kernel: > 0 for every
-    bf16 tensor-core instantiation, 0 for the f32 CUDA-core one."""
+    mma) count in the SASS of each flash-attention and AMP-stage kernel:
+    > 0 for every bf16 tensor-core instantiation (K3's tc_kernel, K1's
+    mma_kernel), 0 for K1's f32 CUDA-core one."""
     from audiolcm_torch.build import build_all, sass_op_counts
 
     t0 = time.time()
@@ -149,18 +156,67 @@ def build_phase() -> dict:
     stats = {k: [ln.strip() for ln in v.splitlines() if any(w in ln for w in keys)]
              for k, v in logs.items()}
     hmma = sass_op_counts("flash_attention", "HMMA")
-    row = {"seconds": seconds, "ptxas": stats, "flash_attention_sass_hmma": hmma}
+    amp = sass_op_counts("amp_stage", "HMMA")
+    row = {"seconds": seconds, "ptxas": stats, "flash_attention_sass_hmma": hmma,
+           "amp_stage_sass_hmma": amp}
     tc = [n for fn, n in hmma.items() if "tc_kernel" in fn]
-    if not tc or min(tc) == 0:
+    mma = [n for fn, n in amp.items() if "mma_kernel" in fn]
+    cuda_core = [n for fn, n in amp.items() if "mma_kernel" not in fn]
+    if not tc or min(tc) == 0 or not mma or min(mma) == 0 or not cuda_core or any(cuda_core):
         emit({"phase": "build", **row})
-        raise AssertionError(f"a bf16 flash-attention kernel has no HMMA in its SASS: {hmma}")
+        raise AssertionError(f"HMMA in SASS: flash_attention {hmma}, amp_stage {amp}")
     return row
 
 
+def amp_counts() -> tuple:
+    from audiolcm_torch.nn import amp_stage as A
+
+    return A.LAUNCHES, A.LAUNCHES_TC, A.LAUNCHES_CL, A.LAUNCHES_MMA
+
+
+def route_row(x: torch.Tensor, ks, ds, n0: tuple, n1: tuple, n2: tuple, on_card: bool,
+              wrapper: int = 0, per_call: int = 1) -> tuple:
+    """The routes and tiles of an f32 call (amp_counts() n0 -> n1) and a
+    bf16 call (n1 -> n2) of one AMP-stage wrapper (`wrapper`: 0 K1, 1 K2a,
+    2 K2b), their launches [K1, K2a, K2b, MMA] and whether they are as
+    expected: on the card each call adds `per_call` to its wrapper's count
+    and the bf16 call as many to LAUNCHES_MMA; the CPU launches nothing."""
+    from audiolcm_torch.nn import amp_stage as A
+
+    r = A.stage_radius(ks, ds)
+    c = x.shape[-1]
+    f32_step = [b - a for a, b in zip(n0, n1)]
+    bf16_step = [b - a for a, b in zip(n1, n2)]
+    row = {"f32_route": A.pick_route(x), "f32_tile": A.route_tile("cuda_core", c, r),
+           "bf16_route": A.pick_route(x.bfloat16()), "bf16_tile": A.route_tile("mma", c, r),
+           "launches_f32_call": f32_step, "launches_bf16_call": bf16_step}
+    n = per_call if on_card else 0
+    want = [n if i == wrapper else 0 for i in range(4)]
+    return row, f32_step == want and bf16_step == want[:3] + [n]
+
+
+def bf16_regions(kb: torch.Tensor, pb: torch.Tensor, plain: torch.Tensor, tile: int) -> dict:
+    """Mean error against the f32 plain result (B, T, C) of the bf16 kernel
+    output kb and of the plain bf16 path pb, [kernel, plain], over the first
+    and last 256 samples and over the bf16 route's last tile (ragged where
+    tile does not divide T): the edge code that a whole-tensor mean hides."""
+    t = plain.shape[1]
+    spans = {"first_256": (0, min(256, t)), "last_256": (max(t - 256, 0), t),
+             "last_tile": ((t - 1) // tile * tile, t)}
+    err = lambda y, lo, hi: (y[:, lo:hi] - plain[:, lo:hi]).abs().mean().item()
+    return {name: [err(kb, lo, hi), err(pb, lo, hi)] for name, (lo, hi) in spans.items()}
+
+
+def regions_hold(regions: dict) -> bool:
+    return all(k <= p * 1.02 for k, p in regions.values())
+
+
 def check_phase(device, shapes, rehearsal: bool) -> list:
-    """K1 against its plain version: f32 (whole, first and last 256
-    samples) and bf16 (mean error vs the f32 plain result, at most 1.02x
-    the plain bf16 path's)."""
+    """K1 against its plain version: f32 on the CUDA-core kernel (whole,
+    first and last 256 samples) and bf16 on the tensor-core kernel (mean
+    error vs the f32 plain result, at most 1.02x the plain bf16 path's, over
+    the whole output and over each of `bf16_regions`), with each call's
+    route, tile and launch counts."""
     from audiolcm_torch.nn import amp_stage as A
 
     kernel = A.stage_tiles_emulated if rehearsal else A.fused_amp_stage
@@ -171,22 +227,32 @@ def check_phase(device, shapes, rehearsal: bool) -> list:
                         device=device).transpose(1, 2)
         for fast in (False, True):
             plain = A.fused_amp_stage_plain(x, sp, KS, DS, fast)
+            n0 = amp_counts()
             out = kernel(x, sp, KS, DS, fast=fast)
             sync(device)
+            n1 = amp_counts()
             err = (out - plain).abs()
             edge = max(err[:, :256].max().item(), err[:, -256:].max().item())
             spb, xb = cast(sp, torch.bfloat16), x.bfloat16()
             kb = kernel(xb, spb, KS, DS, fast=fast).float()
+            sync(device)
+            n2 = amp_counts()
             pb = A.fused_amp_stage_plain(xb, spb, KS, DS, fast).float()
             kerr, perr = (kb - plain).abs().mean().item(), (pb - plain).abs().mean().item()
+            routes, counted = route_row(x, KS, DS, n0, n1, n2, not rehearsal)
+            regions = bf16_regions(kb, pb, plain, routes["bf16_tile"])
             row = {"C": c, "T": t, "fast": fast, "f32_max_abs_err": err.max().item(),
                    "f32_edge_max_abs_err": edge, "f32_tol": F32_TOL,
-                   "bf16_mean_err": kerr, "plain_bf16_mean_err": perr}
+                   "bf16_mean_err": kerr, "plain_bf16_mean_err": perr,
+                   "bf16_region_mean_err": regions,
+                   "bf16_max_abs_err_vs_plain_bf16": (kb - pb).abs().max().item(), **routes}
             emit({"phase": "check", "kernel": "amp_stage", **row})
             if not (err.max().item() <= F32_TOL and edge <= F32_TOL):
                 raise AssertionError(f"amp_stage f32 disagrees with its plain version: {row}")
-            if not kerr <= perr * 1.02:
+            if not (kerr <= perr * 1.02 and regions_hold(regions)):
                 raise AssertionError(f"amp_stage bf16 error above the plain bf16 path's: {row}")
+            if not counted:
+                raise AssertionError(f"amp_stage launch counts: {row}")
             results.append(row)
     return results
 
@@ -211,39 +277,84 @@ def check_variants_phase(device, shapes, rehearsal: bool) -> list:
             kernel = (lambda xi, pi: A.stage_tiles_emulated(xi, pi, ks, ds, fast) if rehearsal
                       else A.fused_amp_stage(xi, pi, ks, ds, fast=fast, accum=accum))
             plain = A.fused_amp_stage_plain(x, p, ks, ds, fast)
+            n0 = amp_counts()
             err = (kernel(x, p) - plain).abs()
+            sync(device)
+            n1 = amp_counts()
             edge = max(err[:, :256].max().item(), err[:, -256:].max().item())
             pb, xb = cast(p, torch.bfloat16), x.bfloat16()
-            kerr = (kernel(xb, pb).float() - plain).abs().mean().item()
-            perr = (A.fused_amp_stage_plain(xb, pb, ks, ds, fast).float() - plain).abs().mean().item()
+            kb = kernel(xb, pb).float()
             sync(device)
+            n2 = amp_counts()
+            pbo = A.fused_amp_stage_plain(xb, pb, ks, ds, fast).float()
+            kerr, perr = (kb - plain).abs().mean().item(), (pbo - plain).abs().mean().item()
+            routes, counted = route_row(x, ks, ds, n0, n1, n2, not rehearsal)
+            regions = bf16_regions(kb, pbo, plain, routes["bf16_tile"])
             row = {"C": c, "T": t, "batch": PROFILE_BATCH, "variant": key, "ks": list(ks),
                    "ds": list(ds), "fast": fast, "accum": accum,
-                   "tile": A.pick_tile(c, A.stage_radius(ks, ds)),
                    "f32_max_abs_err": err.max().item(), "f32_edge_max_abs_err": edge,
                    "f32_tol": F32_TOL, "plain_abs_max": plain.abs().max().item(),
-                   "bf16_mean_err": kerr, "plain_bf16_mean_err": perr}
+                   "bf16_mean_err": kerr, "plain_bf16_mean_err": perr,
+                   "bf16_region_mean_err": regions, **routes}
             emit({"phase": "check", "kernel": "amp_stage", **row})
             if not (row["f32_max_abs_err"] <= F32_TOL and edge <= F32_TOL
-                    and kerr <= perr * 1.02):
+                    and kerr <= perr * 1.02 and regions_hold(regions) and counted):
                 raise AssertionError(f"amp_stage variant disagrees with its plain version: {row}")
             rows.append(row)
     return rows
 
 
+def stage_convs(xc: torch.Tensor, sp) -> None:
+    """The stage's 18 convs alone, each on xc (B, C, T) through F.conv1d
+    (cuDNN): a yardstick for the tensor-core kernel's convs; no port path
+    calls it."""
+    import torch.nn.functional as F
+
+    for blk, k in zip(sp, KS):
+        for p, d in zip(blk["sub"], DS):
+            F.conv1d(xc, p["w1"], p["c1b"], padding=(k - 1) // 2 * d, dilation=d)
+            F.conv1d(xc, p["w2"], p["c2b"], padding=(k - 1) // 2)
+
+
+def kernel_device_ms(run, name: str, calls: int) -> float:
+    """torch.profiler device time of the kernels whose name holds `name`
+    over `calls` calls of run(), per call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            run()
+        torch.cuda.synchronize()
+    us = lambda e: getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+    return sum(us(e) for e in prof.key_averages() if name in e.key) / 1e3 / calls
+
+
 def time_phase(device, shapes, card: dict) -> dict:
-    """Batch 8, bf16, fast=True: kernel vs plain (CUDA events) and the bound."""
+    """Batch 8, bf16, fast=True: kernel vs plain (CUDA events) and the
+    bound; the route and tile; the kernel's device time in the profiler
+    (so ms - device_ms is the wrapper's cost per call: validation, weight
+    packing, launch); for information the stage's 18 convs alone through
+    cuDNN (convs_cudnn_ms; library_ms stays null: no PyTorch call computes
+    the stage)."""
     from audiolcm_torch.nn import amp_stage as A
 
     out = {}
     for c, t in shapes:
         sp = cast(stage_params(c, seed=c, device=device), torch.bfloat16)
         x = torch.randn(8, c, t, device=device, dtype=torch.bfloat16).transpose(1, 2)
-        k_ms = event_ms(lambda: A.fused_amp_stage(x, sp, KS, DS, fast=True), iters=5)
+        run = lambda: A.fused_amp_stage(x, sp, KS, DS, fast=True)
+        k_ms = event_ms(run, iters=10)
         p_ms = event_ms(lambda: A.fused_amp_stage_plain(x, sp, KS, DS, True), iters=3)
+        xc = x.transpose(1, 2).contiguous()
+        with torch.inference_mode():
+            conv_ms = event_ms(lambda: stage_convs(xc, sp), iters=5)
         bound, by = stage_bound_ms(8, t, c, 2)
-        row = {"C": c, "T": t, "batch": 8, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
-               "bound_by": by, "library_ms": None, "card": card["nvidia_smi"]}
+        route = A.pick_route(x)
+        row = {"C": c, "T": t, "batch": 8, "route": route,
+               "tile": A.route_tile(route, c, A.stage_radius(KS, DS)), "ms": k_ms,
+               "device_ms": kernel_device_ms(run, "amp_stage", 5), "plain_ms": p_ms,
+               "bound_ms": bound, "bound_by": by, "library_ms": None,
+               "convs_cudnn_ms": conv_ms, "card": card["nvidia_smi"]}
         emit({"phase": "time", "kernel": "amp_stage", **row})
         out[(c, t)] = row
     return out
@@ -271,8 +382,10 @@ def act_forms_phase(device, card: dict) -> list:
 
 def check_k2_phase(device, shapes, rehearsal: bool) -> list:
     """K2a (fused_amp_stage_tc) and K2b (fused_amp_stage_cl), one launch of
-    the K1 kernel per batch element, against the plain version: batch 2,
-    f32 max abs error and bf16 mean error as in check_phase."""
+    the K1 kernels per batch element, against the plain version: batch 2,
+    f32 max abs error and bf16 mean errors (whole and `bf16_regions`) as in
+    check_phase, with the routes, tiles and launch counts (2 per call on the
+    card)."""
     from audiolcm_torch.nn import amp_stage as A
 
     rows = []
@@ -282,16 +395,25 @@ def check_k2_phase(device, shapes, rehearsal: bool) -> list:
                         device=device).transpose(1, 2)
         plain = A.fused_amp_stage_plain(x, sp, KS, DS, True)
         spb, xb = cast(sp, torch.bfloat16), x.bfloat16()
-        perr = (A.fused_amp_stage_plain(xb, spb, KS, DS, True).float() - plain).abs().mean().item()
+        pb = A.fused_amp_stage_plain(xb, spb, KS, DS, True).float()
+        perr = (pb - plain).abs().mean().item()
         for name, fn in (("amp_stage_tc", A.fused_amp_stage_tc),
                          ("amp_stage_cl", A.fused_amp_stage_cl)):
+            n0 = amp_counts()
             err = (fn(x, sp, KS, DS, fast=True) - plain).abs().max().item()
-            kerr = (fn(xb, spb, KS, DS, fast=True).float() - plain).abs().mean().item()
+            n1 = amp_counts()
+            kb = fn(xb, spb, KS, DS, fast=True).float()
+            kerr = (kb - plain).abs().mean().item()
             sync(device)
+            routes, counted = route_row(x, KS, DS, n0, n1, amp_counts(), not rehearsal,
+                                        wrapper=1 if name == "amp_stage_tc" else 2, per_call=2)
+            regions = bf16_regions(kb, pb, plain, routes["bf16_tile"])
             row = {"kernel": name, "C": c, "T": t, "batch": 2, "f32_max_abs_err": err,
-                   "f32_tol": F32_TOL, "bf16_mean_err": kerr, "plain_bf16_mean_err": perr}
+                   "f32_tol": F32_TOL, "bf16_mean_err": kerr, "plain_bf16_mean_err": perr,
+                   "bf16_region_mean_err": regions, **routes}
             emit({"phase": "check", **row})
-            if not (err <= F32_TOL and kerr <= perr * 1.02):
+            if not (err <= F32_TOL and kerr <= perr * 1.02 and regions_hold(regions)
+                    and counted):
                 raise AssertionError(f"{name} disagrees with the plain version: {row}")
             rows.append(row)
     return rows
@@ -524,7 +646,8 @@ def reset_counts() -> None:
     from audiolcm_torch.nn import amp_stage as A
     from audiolcm_torch.nn import flash_attention as FA
 
-    A.LAUNCHES = A.LAUNCHES_TC = A.LAUNCHES_CL = FA.LAUNCHES = FA.LAUNCHES_TC = K.LAUNCHES = 0
+    A.LAUNCHES = A.LAUNCHES_TC = A.LAUNCHES_CL = A.LAUNCHES_MMA = 0
+    FA.LAUNCHES = FA.LAUNCHES_TC = K.LAUNCHES = 0
 
 
 def read_counts() -> dict:
@@ -533,7 +656,8 @@ def read_counts() -> dict:
     from audiolcm_torch.nn import flash_attention as FA
 
     return {"amp_stage": A.LAUNCHES, "amp_stage_tc": A.LAUNCHES_TC,
-            "amp_stage_cl": A.LAUNCHES_CL, "flash_attention": FA.LAUNCHES,
+            "amp_stage_cl": A.LAUNCHES_CL, "amp_stage_mma": A.LAUNCHES_MMA,
+            "flash_attention": FA.LAUNCHES,
             "flash_attention_tc": FA.LAUNCHES_TC, "act_chain": K.LAUNCHES}
 
 
@@ -592,8 +716,8 @@ def generate_phase(device, mods, full: bool, card: dict) -> dict:
     ok = (tuple(wav.shape) == expect and bool(torch.isfinite(wav).all())
           and wav.abs().max().item() <= 1.0
           and launches == {"amp_stage": 2 if on_card else 0, "amp_stage_tc": 0,
-                           "amp_stage_cl": 0, "flash_attention": 0, "flash_attention_tc": 0,
-                           "act_chain": 0})
+                           "amp_stage_cl": 0, "amp_stage_mma": 2 if on_card else 0,
+                           "flash_attention": 0, "flash_attention_tc": 0, "act_chain": 0})
     row = {"batch": batch, "wav_shape": list(wav.shape), "mel_shape": list(mel.shape),
            "finite": bool(torch.isfinite(wav).all()), "wav_abs_max": wav.abs().max().item(),
            "wav_std": wav.std().item(),
@@ -612,7 +736,7 @@ def generate_phase(device, mods, full: bool, card: dict) -> dict:
                    peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, card=card["nvidia_smi"])
         row["breakdown_ms"] = layer_breakdown(pipe, ids, latent, gen)
         row["profile"] = profile_run(lambda: pipe.generate(ids[0], ids[1], latent, generator=gen),
-                                     ms)
+                                     ms, watch=("amp_stage",))
     else:
         row.update(ms_per_generate="not measured", x_realtime="not measured")
     # the same LCM generate with use_flash=True: its flash launches, and its
@@ -781,7 +905,8 @@ def teacher_phase(device, mods, full: bool, card: dict) -> dict:
            "wav_std": wav.std().item(), "launches": launches}
     n_flash = n_attn * n_steps if on_card else 0
     want = {"amp_stage": 2 if on_card else 0, "amp_stage_tc": 0, "amp_stage_cl": 0,
-            "flash_attention": n_flash, "flash_attention_tc": n_flash, "act_chain": 0}
+            "amp_stage_mma": 2 if on_card else 0, "flash_attention": n_flash,
+            "flash_attention_tc": n_flash, "act_chain": 0}
     if not (tuple(wav.shape) == expect and row["finite"] and row["wav_abs_max"] <= 1.0
             and launches == want):
         emit({"phase": "teacher", **row})
@@ -797,7 +922,7 @@ def teacher_phase(device, mods, full: bool, card: dict) -> dict:
         row.update(ms_per_generate=ms, x_realtime=batch * expect[1] / 16000 / (ms / 1e3),
                    peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, card=card["nvidia_smi"])
         row["breakdown_ms"] = teacher_breakdown(pipe, ids, uc_ids, latent, gen)
-        row["profile"] = profile_run(run, ms, watch=("flash_attention",))
+        row["profile"] = profile_run(run, ms, watch=("flash_attention", "amp_stage"))
     else:
         row.update(ms_per_generate="not measured", x_realtime="not measured")
     # PLMS, 25 steps: one more DiT forward at step 0
@@ -867,7 +992,8 @@ def interior_phase(device, shapes, card: dict, rehearsal: bool) -> dict:
     per_row = 0 if rehearsal else (1 + iters) * len(shapes)  # warm-up + iters per row
     n_k1, n_k4 = 6 * per_row, 2 * per_row  # 6 stage rows, 2 act rows
     if launches != {"amp_stage": n_k1, "amp_stage_tc": 0, "amp_stage_cl": 0,
-                    "flash_attention": 0, "flash_attention_tc": 0, "act_chain": n_k4}:
+                    "amp_stage_mma": n_k1, "flash_attention": 0, "flash_attention_tc": 0,
+                    "act_chain": n_k4}:
         raise AssertionError(f"profiler run: launches {launches}, expected K1 {n_k1}, K4 {n_k4}")
     return {"launches": launches, "tables": tables}
 
@@ -1047,8 +1173,9 @@ def roundtrip_phase(device, full: bool, card: dict) -> dict:
 
 def kernels_line(checks, k2_checks, flash_checks, times, k2_times, flash_time, gen_row,
                  teacher_row, act_checks, act_times, interior, build_row) -> dict:
-    """One entry per kernel: launches on its path (K1: the LCM generate;
-    K3: the teacher generate; K4: the profiler run; K2a/K2b lie on none),
+    """One entry per kernel: launches on its path (K1: the LCM generate,
+    every one on its tensor-core kernel, launches_mma; K3: the teacher
+    generate; K4: the profiler run; K2a/K2b lie on none),
     the largest f32 error of its checks, and this run's times (K1/K2: both
     fused stages of one batch-8 generate, summed; K3: one launch at the
     teacher's shape; K4: its four profiler launches, n_rep 2 and 6 at both
@@ -1058,14 +1185,22 @@ def kernels_line(checks, k2_checks, flash_checks, times, k2_times, flash_time, g
     stage_shapes = sorted({(r["C"], r["T"]) for r in times.values()}, reverse=True)
     k1_sum = lambda key: sum(times[s][key] for s in stage_shapes) if measured else nm
     widest = max(times.values(), key=lambda r: r["bound_ms"]) if measured else {}
+    ratio = lambda rows: max(r["bf16_mean_err"] / r["plain_bf16_mean_err"] for r in rows)
+    region_ratio = lambda rows: max(k / p for r in rows for k, p in r["bf16_region_mean_err"].values())
     common = {"route": "cuda", "source": "audiolcm_torch/csrc/amp_stage.cu",
+              "units": "bf16: tensor cores (amp_stage_mma_kernel, mma.sync m16n8k16 bf16, "
+                       "f32 sums); f32: CUDA cores (amp_stage_kernel)",
               "plain_ms": k1_sum("plain_ms"), "bound_ms": k1_sum("bound_ms"),
               "bound_by": widest.get("bound_by", nm), "library_ms": None,
-              "library_note": "no single PyTorch call computes a fused AMP stage"}
+              "library_note": "no single PyTorch call computes a fused AMP stage",
+              "sass_hmma": build_row.get("amp_stage_sass_hmma", nm)}
     out = [{"name": "amp_stage",
             "replaces": "audiolcm_tpu/nn/pallas_amp_stage.py:665 fused_amp_stage_cl_batched",
             "launches": gen_row["launches"]["amp_stage"],
+            "launches_mma": gen_row["launches"]["amp_stage_mma"],
             "max_abs_err": max(r["f32_max_abs_err"] for r in checks),
+            "bf16_mean_err_ratio_max": ratio(checks),
+            "bf16_region_err_ratio_max": region_ratio(checks),
             "ms": k1_sum("ms"), **common,
             "per_shape": [times[s] for s in stage_shapes]}]
     for name, site in (("amp_stage_tc", "audiolcm_tpu/nn/pallas_amp_stage.py:477 fused_amp_stage"),
@@ -1075,6 +1210,10 @@ def kernels_line(checks, k2_checks, flash_checks, times, k2_times, flash_time, g
                     "launches": teacher_row["launches"][name],
                     "max_abs_err": max(r["f32_max_abs_err"] for r in k2_checks
                                        if r["kernel"] == name),
+                    "bf16_mean_err_ratio_max": ratio([r for r in k2_checks
+                                                      if r["kernel"] == name]),
+                    "bf16_region_err_ratio_max": region_ratio([r for r in k2_checks
+                                                               if r["kernel"] == name]),
                     "ms": sum(k2_times[(name, *s)] for s in stage_shapes) if measured else nm,
                     **common})
     hmma = build_row.get("flash_attention_sass_hmma")
