@@ -11,7 +11,9 @@ The module takes channels-last mel and runs channels-first (B, C, T)
 inside. Stage dispatch follows the JAX package:
   * stages with C <= `pallas_stage_max_channels` (resblock "1", snakebeta,
     one dilation tuple) run as one fused AMP stage (nn/amp_stage.py: the
-    sm_90a kernel on the card);
+    sm_90a kernel on the card) when the kernel route of their dtype has a
+    tile for that C (`amp_stage.route_takes`), and unfused otherwise, as
+    JAX runs a stage unfused when no tile fits;
   * stages with C <= `cf_max_channels` use the polyphase channels-first
     snake (`resample_cf.alias_free_snake_cf`), wider ones the depthwise-conv
     alias-free activation — the same function up to float rounding.
@@ -25,7 +27,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from audiolcm_torch.nn.amp_stage import fused_amp_stage
+from audiolcm_torch.nn.amp_stage import fused_amp_stage, route_takes, stage_radius
 from audiolcm_torch.nn.resample import alias_free_activation_cf
 from audiolcm_torch.nn.resample_cf import alias_free_snake_cf
 from audiolcm_torch.nn.snake import Snake, SnakeBeta
@@ -169,12 +171,15 @@ class BigVGAN(nn.Module):
                                             cfg.fast_snake)
         self.conv_post = nn.Conv1d(ch, 1, 7, padding=3)
 
-    def _fused(self, ch: int) -> bool:
+    def _fused(self, ch: int, dtype: torch.dtype) -> bool:
+        """Whether the stage of width ch runs as one fused AMP stage: decided
+        from shapes and dtype alone, before any launch."""
         cfg = self.config
+        dil = tuple(cfg.resblock_dilation_sizes[0])
         return (cfg.resblock == "1" and cfg.activation == "snakebeta"
                 and ch <= self.pallas_stage_max_channels
-                and all(tuple(rd) == tuple(cfg.resblock_dilation_sizes[0])
-                        for rd in cfg.resblock_dilation_sizes))
+                and all(tuple(rd) == dil for rd in cfg.resblock_dilation_sizes)
+                and route_takes(dtype, ch, stage_radius(cfg.resblock_kernel_sizes, dil)))
 
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
         """mel (B, T, num_mels) -> waveform (B, 256*T) in [-1, 1]."""
@@ -185,7 +190,7 @@ class BigVGAN(nn.Module):
             x = self.ups[i][0](x)
             ch = x.shape[1]
             blocks = self.resblocks[i * nk:(i + 1) * nk]
-            if self._fused(ch):
+            if self._fused(ch, x.dtype):
                 sp = [blk.stage_params(x.dtype) for blk in blocks]
                 x = fused_amp_stage(
                     x.transpose(1, 2), sp, tuple(cfg.resblock_kernel_sizes),

@@ -11,12 +11,18 @@ each time) of the edge-padded input, (B, T, C) in, (B, C, T) out.
 
   * `act_chain` — the wrapper. A CUDA tensor launches the kernel (or
     raises); a CPU tensor runs `act_chain_plain`.
-  * `act_chain_plain` — edge pad by 6 * n_rep, then the n_rep valid
-    activations, in plain torch ops in x's dtype.
+  * `act_chain_plain` — edge pad by `halo(n_rep)` = 6 * n_rep, then the
+    n_rep valid activations, in plain torch ops in x's dtype.
   * `act_chain_tiles_emulated` — the kernel's algorithm: one window of
-    tile + 12 * n_rep samples per tile, read at positions clamped to
-    [0, T), f32 inside, one rounding at the output, a ragged last tile
+    tile + 2 * `margin(n_rep)` samples per tile, read at positions clamped
+    to [0, T), f32 inside, one rounding at the output, a ragged last tile
     kept. The CPU tests hold it against the JAX tool.
+
+The kernel's tiling: one warp per channel runs the chain over a window of
+WINDOW samples in shared memory, in chunks of CHUNK, each lane a run of
+RUN samples in registers, 30 of a warp's 32 runs written per chunk. The
+window is the tile plus, on each side, a margin of the chain's receptive
+radius rounded up to RUN (`pick_tile`).
 """
 
 from __future__ import annotations
@@ -27,14 +33,22 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from audiolcm_torch.nn.amp_stage import R_ACT, SMEM_BYTES, valid_alias_free_snake_cl
+from audiolcm_torch.nn.amp_stage import R_ACT, valid_alias_free_snake_cl
 from audiolcm_torch.nn.resample import alias_free_taps
 
 # Kernel launches since the last reset (chip_smoke sets it to 0 around a run).
 LAUNCHES = 0
 
-ACT_CG = 8  # channels per thread block; must match csrc/act_chain.cu
-MAX_TILE = 512
+ACT_CG = 8  # channels per thread block, one warp each; these must match csrc/act_chain.cu
+RUN = 16  # samples per lane
+RUN_PITCH = 20  # floats between runs in shared memory
+CHUNK = 30 * RUN  # samples a warp writes per pass over 32 runs
+WINDOW = 4 * CHUNK  # samples per window: tile + 2 * margin
+# The longest chain the wrapper takes: the 18 activations of one fused AMP
+# stage. Longer chains amplify f32 rounding (x + sin^2 grows the signal and
+# its error with every activation), so that two f32 evaluations in another
+# order no longer agree to the kernel's 1e-4 check against its plain version.
+MAX_NREP = 18
 
 
 def halo(n_rep: int) -> int:
@@ -42,17 +56,26 @@ def halo(n_rep: int) -> int:
     return R_ACT * n_rep
 
 
+def margin(n_rep: int) -> int:
+    """The window's margin on each side of the tile: the halo rounded up to
+    RUN, so that the tile starts on a run."""
+    return -(-halo(n_rep) // RUN) * RUN
+
+
 def smem_bytes(tile: int, n_rep: int) -> int:
-    return 4 * 3 * ACT_CG * ((tile + 2 * halo(n_rep)) | 1)
+    """One f32 row per channel: the window's runs plus a margin run on each
+    side, RUN_PITCH floats apart."""
+    runs = (tile + 2 * margin(n_rep)) // RUN
+    return 4 * ACT_CG * (runs + 2) * RUN_PITCH
 
 
 def pick_tile(n_rep: int) -> int:
-    """Largest multiple of 32 (<= MAX_TILE) whose three f32 rows of ACT_CG
-    channels fit one block's shared memory: 512 up to n_rep 158."""
-    for tile in range(MAX_TILE, 31, -32):
-        if smem_bytes(tile, n_rep) <= SMEM_BYTES:
-            return tile
-    raise ValueError(f"act_chain: n_rep={n_rep} does not fit shared memory")
+    """The kernel's time tile: the window minus its margins, a multiple of
+    RUN (1888 at n_rep 1-2, 1824 at n_rep 3-8, 1696 at MAX_NREP)."""
+    if not 1 <= n_rep <= MAX_NREP:
+        raise ValueError(f"act_chain takes n_rep in [1, {MAX_NREP}], got {n_rep}: longer chains "
+                         "amplify f32 rounding past the kernel's check against its plain version")
+    return WINDOW - 2 * margin(n_rep)
 
 
 def act_chain_plain(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor, n_rep: int,
@@ -70,19 +93,29 @@ def act_chain_plain(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor, n_
 def act_chain_tiles_emulated(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
                              n_rep: int, fast: bool = True,
                              tile: int | None = None) -> torch.Tensor:
-    """(B, T, C) -> (B, C, T) computed as csrc/act_chain.cu does."""
+    """(B, T, C) -> (B, C, T) computed as csrc/act_chain.cu does: per tile,
+    the window [t0 - margin, t0 + tile + margin) read at clamped positions,
+    n_rep activations in f32, the tile's centre rounded once. (The kernel
+    runs every activation over the whole window and lets the samples near
+    its ends go wrong; here the valid activations drop them instead. The
+    centre is the same.)"""
     b, t, c = x.shape
     tile = tile or pick_tile(n_rep)
-    h = halo(n_rep)
+    m, h = margin(n_rep), halo(n_rep)
     xc, a, bt = x.transpose(1, 2).float(), alpha.float(), beta.float()
     out = torch.empty(b, c, t)
     for t0 in range(0, t, tile):
-        win = xc[..., torch.arange(t0 - h, t0 + tile + h).clamp(0, t - 1)]
+        win = xc[..., torch.arange(t0 - m, t0 + tile + m).clamp(0, t - 1)]
         for _ in range(n_rep):
             win = valid_alias_free_snake_cl(win, a, bt, fast)
         end = min(t0 + tile, t)
-        out[..., t0:end] = win[..., :end - t0]
+        out[..., t0:end] = win[..., m - h:m - h + end - t0]
     return out.to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _taps():
+    return (ctypes.c_float * 24)(*[v for group in alias_free_taps() for v in group])
 
 
 @functools.lru_cache(maxsize=None)
@@ -92,7 +125,7 @@ def _library():
     lib = ctypes.CDLL(str(build("act_chain")))
     lib.act_chain_launch.argtypes = (
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 3
-        + [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_void_p])
+        + [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_void_p])
     lib.act_chain_launch.restype = ctypes.c_int
     return lib
 
@@ -104,7 +137,7 @@ def act_chain(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor, n_rep: i
 
     On a CUDA tensor this launches the sm_90a kernel once, at the time tile
     `pick_tile(n_rep)`, or raises; on a CPU tensor it runs the plain
-    version."""
+    version. n_rep is at most MAX_NREP on either device."""
     global LAUNCHES
     if x.dim() != 3:
         raise ValueError(f"x must be (B, T, C), got shape {tuple(x.shape)}")
@@ -112,24 +145,23 @@ def act_chain(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor, n_rep: i
     if tuple(alpha.shape) != (c,) or tuple(beta.shape) != (c,):
         raise ValueError(f"alpha and beta must be ({c},), got {tuple(alpha.shape)} and "
                          f"{tuple(beta.shape)}")
-    if not (isinstance(n_rep, int) and n_rep >= 1):
-        raise ValueError(f"n_rep must be a positive int, got {n_rep!r}")
+    if not isinstance(n_rep, int):
+        raise ValueError(f"n_rep must be an int, got {n_rep!r}")
+    tile = pick_tile(n_rep)
     if x.device.type == "cpu":
         return act_chain_plain(x, alpha, beta, n_rep, fast)
     if x.device.type != "cuda":
         raise ValueError(f"act_chain runs on cuda or cpu, not {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"act_chain kernel takes float32 or bfloat16, not {x.dtype}")
-    tile = pick_tile(n_rep)
     b, t, _ = x.shape
     out = torch.empty(b, c, t, device=x.device, dtype=x.dtype)
-    vec = torch.cat([alpha.float(), 1.0 / (beta.float() + 1e-9)]).to(x.device)
-    taps = (ctypes.c_float * 24)(*[v for group in alias_free_taps() for v in group])
+    vec = torch.cat([alpha, beta]).to(device=x.device, dtype=torch.float32)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = _library().act_chain_launch(
-            x.data_ptr(), out.data_ptr(), vec.data_ptr(), b, c, t, *x.stride(), tile, n_rep,
-            int(fast), int(x.dtype == torch.bfloat16), taps, stream)
+            x.data_ptr(), out.data_ptr(), vec.data_ptr(), b, c, t, *x.stride(), tile,
+            margin(n_rep), n_rep, int(fast), int(x.dtype == torch.bfloat16), _taps(), stream)
     if rc != 0:
         raise RuntimeError(f"act_chain kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1

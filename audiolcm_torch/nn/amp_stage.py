@@ -130,6 +130,16 @@ def route_tile(route: str, c: int, r: int) -> int:
     return pick_tile_mma(c, r) if route == "mma" else pick_tile(c, r)
 
 
+def route_takes(dtype: torch.dtype, c: int, r: int) -> bool:
+    """Whether the kernel route of `dtype` has a tile for C at radius r
+    (bf16: the tensor-core kernel, f32: the CUDA-core kernel; no other
+    dtype has a kernel). Never raises, and answers the same on any device,
+    so a caller can decide before any launch which stages to fuse."""
+    if dtype == torch.bfloat16:
+        return c <= MMA_MAX_C and smem_bytes_mma(c, 16, r) <= SMEM_BYTES
+    return dtype == torch.float32 and smem_bytes(c, 32, r) <= SMEM_BYTES
+
+
 # ---------------------------------------------------------------------------
 # plain version
 # ---------------------------------------------------------------------------

@@ -22,7 +22,10 @@ batch 8, bf16, fast snake:
   5. act-only: the activation chain K4 (`nn/act_chain.py`) at n_rep 2 and
      6; the slope (n6 - n2) / 4 is one alias-free SnakeBeta unit with the
      load and store cancelled. The stage runs 2 * 3 * 3 = 18 units, so
-     act_total = 18 * unit and conv + overhead = full - act_total.
+     act_total = 18 * unit and conv + overhead = full - act_total. K4 runs
+     its own design (register runs, halos by shuffle), not K1's activation
+     code, so act_total is what K1's activations would cost in K4's design
+     and conv + overhead what K1 would keep.
 
 Each kernel runs at its own tile: K1's route's tile (bf16: the
 tensor-core kernel's `pick_tile_mma`) at the variant's own stage radius (a

@@ -7,9 +7,10 @@
 Phases, one JSON line each; any failure raises and exits non-zero:
   1. card     — device name and count, nvidia-smi name and power limit
   2. build    — every csrc/*.cu compiled with nvcc for sm_90a, one nvcc per
-                source, all started together (ptxas stats; the HMMA count
-                of each kernel's SASS: > 0 in every bf16 tensor-core kernel
-                of K1 and K3, 0 in K1's f32 CUDA-core kernel)
+                source, all started together (ptxas stats, K4's registers,
+                spills and shared memory; the HMMA count of each kernel's
+                SASS: > 0 in every bf16 tensor-core kernel of K1 and K3, 0
+                in K1's f32 CUDA-core kernel)
   3. check    — each kernel against its plain PyTorch version on the card at
                 the main paths' shapes (f32 with TF32 off, and bf16): the AMP
                 stage K1, K1 at each stage variant of the profiler, its
@@ -18,7 +19,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                 over the whole output, its edges and its last tile), flash
                 attention K3 (f32 on its CUDA-core kernel, bf16 on its
                 tensor-core kernel through the 16-byte or the element-wise
-                loads), the activation chain K4
+                loads), the activation chain K4 (n_rep 1, 2, 6, MAX_NREP)
   4. time     — each kernel, its plain version, the bound and (K3) the
                 library call, bf16 (K1 also its device time in the profiler
                 and, for information, its 18 convs alone through cuDNN); the
@@ -29,7 +30,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                 unfused vocoder (before the final tanh); then the batch-8
                 10 s generate with the launch counts of its path, ms per
                 generate, x realtime and a per-layer breakdown; the same
-                generate with use_flash=True (launch counts, ms)
+                generate with use_flash=True (launch counts, ms); then the
+                serving vocoder at knob 96 against knob 48 (`knob`)
   6. teacher  — one full-width DiT forward at CFG batch 4 in f32, flash
                 against einsum attention, and in bf16, flash and einsum each
                 against the f32 einsum eps; then the teacher path: batch-8
@@ -53,6 +55,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -76,6 +79,7 @@ ACT_FLOP = 78  # per sample and activation: up-FIR 24, two snakes ~30, down-FIR 
 GUIDANCE = 5.0
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 rate (published peak, 700 W)
 HBM = 3.35e12  # H100 SXM memory rate, bytes/s
+PEAK_F32 = 67e12  # H100 SXM float32 rate outside the tensor cores, FLOP/s
 
 
 def emit(obj) -> None:
@@ -142,6 +146,21 @@ def card_phase(device) -> dict:
             "nvidia_smi": smi}
 
 
+def ptxas_kernels(log: str) -> dict:
+    """{kernel symbol: registers and spill bytes} from nvcc's `-Xptxas -v`
+    log of one source."""
+    out, fn = {}, None
+    for ln in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", ln):
+            fn = out.setdefault(m[1], {})
+        elif fn is not None and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                                                r"loads", ln)):
+            fn.update(spill_stores=int(m[1]), spill_loads=int(m[2]))
+        elif fn is not None and (m := re.search(r"Used (\d+) registers", ln)):
+            fn["registers"] = int(m[1])
+    return out
+
+
 def build_phase() -> dict:
     """Build every source; ptxas' per-kernel lines; the HMMA (tensor-core
     mma) count in the SASS of each flash-attention and AMP-stage kernel:
@@ -157,8 +176,11 @@ def build_phase() -> dict:
              for k, v in logs.items()}
     hmma = sass_op_counts("flash_attention", "HMMA")
     amp = sass_op_counts("amp_stage", "HMMA")
+    from audiolcm_torch.nn import act_chain as K
+
     row = {"seconds": seconds, "ptxas": stats, "flash_attention_sass_hmma": hmma,
-           "amp_stage_sass_hmma": amp}
+           "amp_stage_sass_hmma": amp, "act_chain_ptxas": ptxas_kernels(logs["act_chain"]),
+           "act_chain_dynamic_smem_bytes": K.smem_bytes(K.pick_tile(2), 2)}
     tc = [n for fn, n in hmma.items() if "tc_kernel" in fn]
     mma = [n for fn, n in amp.items() if "mma_kernel" in fn]
     cuda_core = [n for fn, n in amp.items() if "mma_kernel" not in fn]
@@ -531,9 +553,10 @@ def act_params(c: int, device) -> tuple:
 
 def check_act_phase(device, shapes, rehearsal: bool) -> list:
     """K4 against its plain version at the profiler's parameters and batch,
-    n_rep 2 and 6, fast off and on: f32 max abs error (whole, and the first
-    and last 6 * n_rep samples) <= F32_TOL; bf16 mean error against the f32
-    plain result at most 1.02x the plain bf16 chain's."""
+    n_rep 1, 2, 6 and the longest chain the wrapper takes (MAX_NREP), fast
+    off and on: f32 max abs error (whole, and the first and last
+    halo(n_rep) samples) <= F32_TOL; bf16 mean error against the f32 plain
+    result at most 1.02x the plain bf16 chain's; one launch per call."""
     from audiolcm_torch.nn import act_chain as K
 
     kernel = K.act_chain_tiles_emulated if rehearsal else K.act_chain
@@ -542,10 +565,12 @@ def check_act_phase(device, shapes, rehearsal: bool) -> list:
         x = torch.randn(PROFILE_BATCH, t, c,
                         generator=torch.Generator(device).manual_seed(t + 2), device=device)
         a, b = act_params(c, device)
-        for n_rep in (2, 6):
+        for n_rep in (1, 2, 6, K.MAX_NREP):
             for fast in (False, True):
                 plain = K.act_chain_plain(x, a, b, n_rep, fast)
+                before = K.LAUNCHES
                 err = (kernel(x, a, b, n_rep, fast) - plain).abs()
+                launches = K.LAUNCHES - before
                 h = K.halo(n_rep)
                 edge = max(err[..., :h].max().item(), err[..., -h:].max().item())
                 kerr = (kernel(x.bfloat16(), a, b, n_rep, fast).float() - plain).abs().mean().item()
@@ -553,13 +578,13 @@ def check_act_phase(device, shapes, rehearsal: bool) -> list:
                         - plain).abs().mean().item()
                 sync(device)
                 row = {"kernel": "act_chain", "C": c, "T": t, "batch": PROFILE_BATCH,
-                       "n_rep": n_rep,
+                       "n_rep": n_rep, "tile": K.pick_tile(n_rep), "launches": launches,
                        "fast": fast, "f32_max_abs_err": err.max().item(),
                        "f32_edge_max_abs_err": edge, "f32_tol": F32_TOL, "bf16_mean_err": kerr,
                        "plain_bf16_mean_err": perr}
                 emit({"phase": "check", **row})
                 if not (row["f32_max_abs_err"] <= F32_TOL and edge <= F32_TOL
-                        and kerr <= perr * 1.02):
+                        and kerr <= perr * 1.02 and launches == (0 if rehearsal else 1)):
                     raise AssertionError(f"act_chain disagrees with its plain version: {row}")
                 rows.append(row)
     return rows
@@ -574,9 +599,17 @@ def act_bound_ms(b: int, c: int, t: int, n_rep: int, elem_bytes: int) -> tuple:
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations"
 
 
+def act_f32_bound_ms(b: int, c: int, t: int, n_rep: int) -> float:
+    """The same ACT_FLOP over the f32 rate of the CUDA cores: the floor of a
+    chain whose cos and 6-tap FIRs cannot run on the tensor cores."""
+    return 1e3 * ACT_FLOP * n_rep * b * c * t / PEAK_F32
+
+
 def time_act_phase(device, shapes, card: dict) -> list:
     """K4 at the profiler's launches: its batch, bf16, fast, n_rep 2 and 6
-    (CUDA events), its plain version and the bound."""
+    (CUDA events through the wrapper, and the kernel's device time in the
+    profiler), its plain version, the bound, the f32 CUDA-core bound, and
+    the kernel's share of each."""
     from audiolcm_torch.nn import act_chain as K
 
     rows = []
@@ -588,7 +621,12 @@ def time_act_phase(device, shapes, card: dict) -> list:
                    "ms": event_ms(lambda: K.act_chain(x, a, b, n_rep), iters=20, warmup=2),
                    "plain_ms": event_ms(lambda: K.act_chain_plain(x, a, b, n_rep, True), iters=3)}
             row["bound_ms"], row["bound_by"] = act_bound_ms(PROFILE_BATCH, c, t, n_rep, 2)
-            row.update(library_ms=None, card=card["nvidia_smi"])
+            row["device_ms"] = kernel_device_ms(lambda: K.act_chain(x, a, b, n_rep),
+                                                "act_chain_kernel", calls=20)
+            row["f32_bound_ms"] = act_f32_bound_ms(PROFILE_BATCH, c, t, n_rep)
+            row.update(bound_share=row["bound_ms"] / row["ms"],
+                       f32_bound_share=row["f32_bound_ms"] / row["ms"], tile=K.pick_tile(n_rep),
+                       library_ms=None, card=card["nvidia_smi"])
             emit({"phase": "time", "kernel": "act_chain", **row})
             rows.append(row)
     return rows
@@ -758,6 +796,46 @@ def generate_phase(device, mods, full: bool, card: dict) -> dict:
             == row["launches_with_flash"]["flash_attention_tc"] == n_flash):
         raise AssertionError(f"LCM generate with flash: {row['launches_with_flash']}")
     emit({"phase": "generate", **row})
+    return row
+
+
+def knob_phase(device, mods, full: bool) -> dict:
+    """The fused-stage knob above the widest C a kernel route takes: the
+    serving vocoder (bf16, fast snake) at batch 8 on a 10 s mel with
+    pallas_stage_max_channels 48 and 96. At 96 the C=96 stage, which no
+    route takes, runs unfused, so both knobs launch the tensor-core kernel
+    for C=48 and 24 alone (2 LAUNCHES_MMA each on the card) and give the
+    same waveform: the same ops on the same input, cuDNN deterministic."""
+    voc = mods.vocoder
+    batch, frames = (8, 624) if full else (2, 16)
+    gen = torch.Generator(device).manual_seed(9)
+    mel = (0.5 * torch.randn(batch, frames, 80, generator=gen, device=device) - 4.0).bfloat16()
+    widths = [voc.config.upsample_initial_channel >> (i + 1)
+              for i in range(len(voc.config.upsample_rates))]
+    wavs, row = {}, {"batch": batch, "frames": frames}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for knob in (48, 96):
+            voc.pallas_stage_max_channels = knob
+            reset_counts()
+            with torch.inference_mode():
+                wavs[knob] = voc(mel).float()
+            sync(device)
+            row[f"knob_{knob}"] = {"fused_widths": [c for c in widths
+                                                    if voc._fused(c, torch.bfloat16)],
+                                   "launches_mma": read_counts()["amp_stage_mma"]}
+    finally:
+        voc.pallas_stage_max_channels = 48
+        torch.backends.cudnn.deterministic = deterministic
+    row["max_abs_diff_96_vs_48"] = (wavs[96] - wavs[48]).abs().max().item()
+    want = 2 if device.type == "cuda" else 0
+    emit({"phase": "knob", **row})
+    if not (row["knob_96"]["launches_mma"] == row["knob_48"]["launches_mma"] == want
+            and row["max_abs_diff_96_vs_48"] == 0.0
+            and tuple(wavs[96].shape) == (batch, 256 * frames)
+            and bool(torch.isfinite(wavs[96]).all())):
+        raise AssertionError(f"fused-stage knob 96 vs 48: {row}")
     return row
 
 
@@ -1241,7 +1319,7 @@ def kernels_line(checks, k2_checks, flash_checks, times, k2_times, flash_time, g
                 "launches": interior["launches"]["act_chain"],
                 "max_abs_err": max(r["f32_max_abs_err"] for r in act_checks),
                 "ms": act_sum("ms"), "plain_ms": act_sum("plain_ms"),
-                "bound_ms": act_sum("bound_ms"),
+                "bound_ms": act_sum("bound_ms"), "f32_bound_ms": act_sum("f32_bound_ms"),
                 "bound_by": act_times[0]["bound_by"] if act_times else nm, "library_ms": None,
                 "library_note": "no single PyTorch call computes a chain of alias-free SnakeBetas",
                 "per_case": act_times})
@@ -1294,6 +1372,7 @@ def main(argv=None) -> int:
         act_forms_phase(device, card)
     mods = build_modules(device, full=not rehearsal)
     gen_row = generate_phase(device, mods, full=not rehearsal, card=card)
+    knob_phase(device, mods, full=not rehearsal)
     teacher_check_phase(device, full=not rehearsal)
     teacher_row = teacher_phase(device, mods, full=not rehearsal, card=card)
     del mods

@@ -3,7 +3,9 @@ audiolcm_tpu.models.bigvgan on a (1, 16, 80) mel, f32 CPU, with the last
 stage (C=24) through the fused AMP stage on both sides (JAX's Pallas kernel
 in interpret mode). Mirrors test_pallas_amp_stage.py:206-225: JAX init
 weights' scale, non-zero biases and snake parameters, all from a numpy
-seed; atol 2e-5.
+seed; atol 2e-5. The fused-stage knob above C=64 follows JAX: JAX fuses
+every stage whose length admits a tile, the port every stage whose route
+has a tile (`amp_stage.route_takes`), and both run the others unfused.
 """
 
 import jax
@@ -35,6 +37,15 @@ def vocoder_case():
     return mel, params, golden
 
 
+@pytest.fixture(scope="module")
+def knob96_golden(vocoder_case):
+    """JAX at pallas_stage_max_channels=96: on this mel it fuses the C=96
+    stage (T=1024, tile 512), C=48 and C=24, in interpret mode."""
+    mel, params, _ = vocoder_case
+    jmodel = JaxBigVGAN(JConfig(), pallas_stage_max_channels=96, pallas_interpret=True)
+    return np.asarray(jax.jit(lambda p, m: jmodel.apply({"params": p}, m))(params, jnp.asarray(mel)))
+
+
 def test_bigvgan_full_width_matches_jax_fused_stage(vocoder_case):
     mel, params, golden = vocoder_case
     port = assign_state_dict(TorchBigVGAN(TConfig(), pallas_stage_max_channels=24),
@@ -62,3 +73,40 @@ def test_bigvgan_unported_knobs_raise():
         TorchBigVGAN(TConfig(), fold_t_segments=8)
     with pytest.raises(NotImplementedError, match="item 10"):
         TorchBigVGAN(TConfig(), int8_min_channels=384)
+
+
+@pytest.mark.parametrize("knob", [96, 1536])
+def test_bigvgan_knob_above_route_widths_matches_jax(vocoder_case, knob96_golden, knob):
+    """A knob above the widest C a kernel route takes returns the JAX
+    waveform: the stages the route cannot take run unfused (on the CPU, f32:
+    C=48 and 24 go through the fused stage's plain version, C>=96 unfused),
+    decided before any launch."""
+    mel, params, _ = vocoder_case
+    port = assign_state_dict(TorchBigVGAN(TConfig(), pallas_stage_max_channels=knob),
+                             vocoder_from_jax(params))
+    assert [ch for ch in (768, 384, 192, 96, 48, 24) if port._fused(ch, torch.float32)] == [48, 24]
+    assert [ch for ch in (96, 48, 24) if port._fused(ch, torch.bfloat16)] == [48, 24]
+    with torch.no_grad():
+        wav = port(torch.from_numpy(mel))
+    assert wav.shape == knob96_golden.shape == (1, 16 * 256)
+    np.testing.assert_allclose(wav.numpy(), knob96_golden, atol=2e-5)
+
+
+def test_route_takes_answers_without_raising():
+    r = amp_stage.stage_radius((3, 7, 11), (1, 3, 5))
+    assert r == 96
+    assert not amp_stage.route_takes(torch.bfloat16, 96, r)
+    assert amp_stage.route_takes(torch.bfloat16, 48, r)
+    assert amp_stage.route_takes(torch.bfloat16, amp_stage.MMA_MAX_C, r)
+    assert amp_stage.route_takes(torch.float32, 48, r)
+    assert not amp_stage.route_takes(torch.float32, 96, r)
+    assert not amp_stage.route_takes(torch.float16, 24, r)  # no kernel takes f16
+    # the query agrees with the tile pickers wherever they find a tile
+    for c in range(1, 100):
+        for dtype, route in ((torch.bfloat16, "mma"), (torch.float32, "cuda_core")):
+            try:
+                amp_stage.route_tile(route, c, r)
+                fits = True
+            except ValueError:
+                fits = False
+            assert amp_stage.route_takes(dtype, c, r) == fits, (c, dtype)
