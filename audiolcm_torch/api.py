@@ -10,12 +10,13 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from audiolcm_torch import config as cfg_mod
+from audiolcm_torch.data.buckets import DEFAULT_MEL_BUCKETS
 from audiolcm_torch.convert import load_state_dict, load_vocoder_dir, split_lcm_state_dict
 from audiolcm_torch.diffusion.lcm import LCMConfig
 from audiolcm_torch.diffusion.schedule import NoiseSchedule
@@ -28,8 +29,6 @@ from audiolcm_torch.pipeline import (
 )
 
 SAMPLE_RATE = 16000
-AOT_NOT_PORTED = ("prewarm_buckets (persisted per-bucket executables) is not ported yet "
-                  "(ROADMAP.md queue 1, item 16)")
 
 
 class Tokenizers:
@@ -84,9 +83,14 @@ def build_pipeline(
 
     profile="serving" sets fast_snake=True and pallas_stage_max_channels=48
     (when 0). Unlike the JAX package's serving profile it leaves the
-    batch-1 fold (fold_t_segments) off: that fold is an exact workaround for
-    the TPU's batch-1 layout, it is not ported yet, and its value on this
-    card is unmeasured. profile=None or "parity" keeps the defaults.
+    batch-1 fold (fold_t_segments) off: the fold works around the TPU's
+    batch-1 layout, and on the card it is slower. The batch-1 10 s serving
+    generate (bf16, eager) took 98.8 ms with the fold off and 119.8 ms at
+    fold 8 (device busy 74.5 and 96.4 ms; NVIDIA H100 80GB HBM3, 700.00 W;
+    chip_smoke.py's `fold` row). fold_t_segments=8 stays available and is
+    exact (nn/fold.py). int8_min_channels is a parity knob, off in every
+    profile, as in the JAX package. profile=None or "parity" keeps the
+    defaults.
     """
     if profile == "serving":
         fast_snake = True
@@ -121,8 +125,46 @@ def build_pipeline(
                             compute_dtype=compute_dtype, device=device)
 
 
-def prewarm_buckets(pipeline: AudioLCMPipeline, *args, **kwargs):
-    raise NotImplementedError(AOT_NOT_PORTED)
+def serving_points(batch_sizes: Sequence[int] = (8,),
+                   mel_buckets: Optional[Sequence[int]] = None) -> List[Tuple[int, int]]:
+    """The (batch, latent_len) points of the duration lattice
+    (`data/buckets.py`), latent = mel // 2."""
+    mel_buckets = tuple(mel_buckets) if mel_buckets is not None else DEFAULT_MEL_BUCKETS
+    return [(b, mel // 2) for b in batch_sizes for mel in mel_buckets]
+
+
+def prewarm_buckets(pipeline: AudioLCMPipeline, batch_sizes: Sequence[int] = (8,),
+                    mel_buckets: Optional[Sequence[int]] = None, tok_len: int = 77) -> dict:
+    """Capture the generate once per (batch, mel bucket) serving point as a
+    CUDA graph (`aot.CapturedGenerate`) and register it on the pipeline,
+    whose `generate` then replays it for int64 ids of shape (batch, tok_len)
+    at that latent length (the port's tokenizers return int64 ids).
+
+    The counterpart of the JAX package's AOT executables. Graphs do not
+    persist across processes: a new process captures again (seconds per
+    bucket, the kernels' nvcc build reused from `audiolcm_torch/_build/`).
+    All of a pipeline's graphs share one memory pool, captured largest
+    first so that the smaller ones reuse its scratch blocks: their replays
+    run one at a time on one stream and every replay's outputs are cloned
+    out of the pool, so a graph's scratch memory is free whenever another
+    graph runs. On a CPU pipeline this raises ValueError: CUDA graphs need
+    a card, and no eager stand-in is registered.
+
+    Returns {(batch, latent_len): "captured"}, as JAX returns "loaded" or
+    "compiled"; each registered graph holds its capture seconds and the
+    pool's bytes after it (`capture_s`, `pool_bytes`)."""
+    from audiolcm_torch.aot import CapturedGenerate
+
+    if pipeline.device.type != "cuda":
+        raise ValueError("prewarm_buckets captures CUDA graphs and needs a CUDA pipeline; "
+                         f"this one runs on {pipeline.device}")
+    if pipeline._graph_pool is None:
+        pipeline._graph_pool = torch.cuda.graph_pool_handle()
+    points = serving_points(batch_sizes, mel_buckets)
+    for b, latent in sorted(points, key=lambda p: p[0] * p[1], reverse=True):
+        graph = CapturedGenerate(pipeline, b, latent, tok_len, pool=pipeline._graph_pool)
+        pipeline._graphs[graph.key] = graph
+    return {p: "captured" for p in points}
 
 
 def _write_wav(path: str, wav: np.ndarray, sample_rate: int = SAMPLE_RATE) -> None:

@@ -4,7 +4,8 @@ The "linear" beta schedule of the reference: betas = linspace(sqrt(b0),
 sqrt(b1), N)^2 with b0=0.00085, b1=0.012 (configs/audiolcm.yaml), and the
 tables `ddpm.py:116-168` derives from it (v_posterior mixes the posterior
 variance towards beta). Arrays are numpy; the samplers read the few
-entries they need, and the q/posterior helpers gather them per batch row.
+entries they need, and the q/posterior helpers gather them per batch row
+from f32 copies on the device, made once per device (`device_table`).
 """
 
 from __future__ import annotations
@@ -13,13 +14,6 @@ import dataclasses
 
 import numpy as np
 import torch
-
-
-def _gather(table: np.ndarray, t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    """table[t] as f32 on like's device, shaped (B, 1, ..., 1) to broadcast
-    against like."""
-    vals = torch.as_tensor(table, dtype=torch.float32, device=like.device)[t.long()]
-    return vals.reshape(vals.shape + (1,) * (like.dim() - vals.dim()))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,6 +33,29 @@ class NoiseSchedule:
     @property
     def num_timesteps(self) -> int:
         return self.betas.shape[0]
+
+    def on_device(self, key, device, make) -> torch.Tensor:
+        """make() (a host tensor) on `device`, copied once per (key, device)
+        and built outside inference mode, so autograd may save it. What the
+        samplers and helpers read through it copies nothing from the host
+        after the first call, so it can be captured in a CUDA graph."""
+        cache = self.__dict__.setdefault("_device_tables", {})
+        full_key = (key, torch.device(device))
+        if full_key not in cache:
+            with torch.inference_mode(False):
+                cache[full_key] = make().to(device)
+        return cache[full_key]
+
+    def device_table(self, name: str, device) -> torch.Tensor:
+        """The table `name` as f32 on `device`."""
+        return self.on_device(name, device,
+                              lambda: torch.as_tensor(getattr(self, name), dtype=torch.float32))
+
+    def _gather(self, name: str, t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+        """table[t] as f32 on like's device, shaped (B, 1, ..., 1) to
+        broadcast against like."""
+        vals = self.device_table(name, like.device)[t.long()]
+        return vals.reshape(vals.shape + (1,) * (like.dim() - vals.dim()))
 
     @classmethod
     def linear(cls, timesteps: int = 1000, linear_start: float = 0.00085,
@@ -62,24 +79,24 @@ class NoiseSchedule:
 
     def q_sample(self, x_start: torch.Tensor, t: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
         """Forward diffusion q(x_t | x_0) (`ddpm.py:273-277`)."""
-        return (_gather(self.sqrt_alphas_cumprod, t, x_start) * x_start
-                + _gather(self.sqrt_one_minus_alphas_cumprod, t, x_start) * noise)
+        return (self._gather("sqrt_alphas_cumprod", t, x_start) * x_start
+                + self._gather("sqrt_one_minus_alphas_cumprod", t, x_start) * noise)
 
     def predict_start_from_noise(self, x_t: torch.Tensor, t: torch.Tensor,
                                  noise: torch.Tensor) -> torch.Tensor:
         """x0-hat from an eps prediction (`ddpm.py:215-219`)."""
-        return (_gather(self.sqrt_recip_alphas_cumprod, t, x_t) * x_t
-                - _gather(self.sqrt_recipm1_alphas_cumprod, t, x_t) * noise)
+        return (self._gather("sqrt_recip_alphas_cumprod", t, x_t) * x_t
+                - self._gather("sqrt_recipm1_alphas_cumprod", t, x_t) * noise)
 
     def predict_eps_from_xstart(self, x_t: torch.Tensor, t: torch.Tensor,
                                 x0: torch.Tensor) -> torch.Tensor:
-        return ((_gather(self.sqrt_recip_alphas_cumprod, t, x_t) * x_t - x0)
-                / _gather(self.sqrt_recipm1_alphas_cumprod, t, x_t))
+        return ((self._gather("sqrt_recip_alphas_cumprod", t, x_t) * x_t - x0)
+                / self._gather("sqrt_recipm1_alphas_cumprod", t, x_t))
 
     def q_posterior(self, x_start: torch.Tensor, x_t: torch.Tensor, t: torch.Tensor):
         """Posterior q(x_{t-1} | x_t, x_0): (mean, variance, log variance)
         (`ddpm.py:221-228`)."""
-        mean = (_gather(self.posterior_mean_coef1, t, x_t) * x_start
-                + _gather(self.posterior_mean_coef2, t, x_t) * x_t)
-        return (mean, _gather(self.posterior_variance, t, x_t),
-                _gather(self.posterior_log_variance_clipped, t, x_t))
+        mean = (self._gather("posterior_mean_coef1", t, x_t) * x_start
+                + self._gather("posterior_mean_coef2", t, x_t) * x_t)
+        return (mean, self._gather("posterior_variance", t, x_t),
+                self._gather("posterior_log_variance_clipped", t, x_t))

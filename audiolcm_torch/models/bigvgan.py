@@ -16,7 +16,14 @@ inside. Stage dispatch follows the JAX package:
     JAX runs a stage unfused when no tile fits;
   * stages with C <= `cf_max_channels` use the polyphase channels-first
     snake (`resample_cf.alias_free_snake_cf`), wider ones the depthwise-conv
-    alias-free activation — the same function up to float rounding.
+    alias-free activation — the same function up to float rounding;
+  * at batch 1, `fold_t_segments` >= 2 runs each unfused stage of
+    resblock "1" as that many overlapping time segments (nn/fold.py) where
+    `fold_legal` holds: exact;
+  * `int8_min_channels` > 0 runs the resblock convs of the unfused
+    resblock-"1" stages with C >= it that do not use the polyphase form
+    (the JAX package's channels-last stages) as dynamic-int8 products
+    (nn/int8_conv.py), a parity knob.
 """
 
 from __future__ import annotations
@@ -28,15 +35,13 @@ import torch
 from torch import nn
 
 from audiolcm_torch.nn.amp_stage import fused_amp_stage, route_takes, stage_radius
+from audiolcm_torch.nn.fold import fold_legal, fold_time, stage_fold_halo, unfold_time
+from audiolcm_torch.nn.int8_conv import int8_conv1d_cl
 from audiolcm_torch.nn.resample import alias_free_activation_cf
 from audiolcm_torch.nn.resample_cf import alias_free_snake_cf
 from audiolcm_torch.nn.snake import Snake, SnakeBeta
 
 CF_STAGE_MAX_CHANNELS = 48
-FOLD_NOT_PORTED = ("fold_t_segments > 0 (the batch-1 overlap-discard fold) is not ported yet "
-                   "(ROADMAP.md queue 1, item 10: nn/fold.py)")
-INT8_NOT_PORTED = ("int8_min_channels > 0 (dynamic-int8 resblock convs) is not ported yet "
-                   "(ROADMAP.md queue 1, item 10: nn/int8_conv.py)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +75,14 @@ def _same_conv(c: int, k: int, d: int = 1) -> nn.Conv1d:
     return nn.Conv1d(c, c, k, dilation=d, padding=(k * d - d) // 2)
 
 
+def _conv(conv: nn.Conv1d, h: torch.Tensor, int8: bool) -> torch.Tensor:
+    """conv(h) on (B, C, T), or its dynamic-int8 form."""
+    if not int8:
+        return conv(h)
+    return int8_conv1d_cl(h.transpose(1, 2), conv.weight, conv.bias,
+                          conv.dilation[0]).transpose(1, 2)
+
+
 class Activation1d(nn.Module):
     """Alias-free activation holder (`activations.N.act.{alpha,beta}` keys)."""
 
@@ -100,10 +113,11 @@ class AMPBlock1(nn.Module):
             Activation1d(channels, activation, snake_logscale, fast_snake)
             for _ in range(2 * len(dilations))])
 
-    def forward(self, x: torch.Tensor, polyphase: bool = True) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, polyphase: bool = True,
+                int8: bool = False) -> torch.Tensor:
         for i in range(len(self.dilations)):
-            h = self.convs1[i](self.activations[2 * i](x, polyphase))
-            h = self.convs2[i](self.activations[2 * i + 1](h, polyphase))
+            h = _conv(self.convs1[i], self.activations[2 * i](x, polyphase), int8)
+            h = _conv(self.convs2[i], self.activations[2 * i + 1](h, polyphase), int8)
             x = x + h
         return x
 
@@ -143,10 +157,6 @@ class BigVGAN(nn.Module):
                  pallas_stage_conv: str = "tap", int8_min_channels: int = 0,
                  fold_t_segments: int = 0):
         super().__init__()
-        if fold_t_segments:
-            raise NotImplementedError(FOLD_NOT_PORTED)
-        if int8_min_channels:
-            raise NotImplementedError(INT8_NOT_PORTED)
         cfg = config
         self.config = cfg
         self.cf_max_channels = cf_max_channels
@@ -155,6 +165,10 @@ class BigVGAN(nn.Module):
         self.pallas_stage_max_channels = pallas_stage_max_channels
         self.pallas_stage_accum = pallas_stage_accum
         self.pallas_stage_conv = pallas_stage_conv
+        # resblock convs of unfused channels-last stages with C >= this in
+        # dynamic int8 (0 = off), and the batch-1 fold's segment count (0 = off)
+        self.int8_min_channels = int8_min_channels
+        self.fold_t_segments = fold_t_segments
         c0 = cfg.upsample_initial_channel
         self.conv_pre = nn.Conv1d(cfg.num_mels, c0, 7, padding=3)
         self.ups = nn.ModuleList()
@@ -185,25 +199,37 @@ class BigVGAN(nn.Module):
         """mel (B, T, num_mels) -> waveform (B, 256*T) in [-1, 1]."""
         cfg = self.config
         nk = len(cfg.resblock_kernel_sizes)
+        fold = self.fold_t_segments
         x = self.conv_pre(mel.transpose(1, 2))
-        for i in range(len(cfg.upsample_rates)):
-            x = self.ups[i][0](x)
-            ch = x.shape[1]
+        for i, (u, k) in enumerate(zip(cfg.upsample_rates, cfg.upsample_kernel_sizes)):
+            ch = cfg.upsample_initial_channel // 2 ** (i + 1)
             blocks = self.resblocks[i * nk:(i + 1) * nk]
             if self._fused(ch, x.dtype):
                 sp = [blk.stage_params(x.dtype) for blk in blocks]
                 x = fused_amp_stage(
-                    x.transpose(1, 2), sp, tuple(cfg.resblock_kernel_sizes),
+                    self.ups[i][0](x).transpose(1, 2), sp, tuple(cfg.resblock_kernel_sizes),
                     tuple(cfg.resblock_dilation_sizes[0]), fast=cfg.fast_snake,
                     accum=self.pallas_stage_accum, conv=self.pallas_stage_conv,
                 ).transpose(1, 2)
                 continue
+            folded = False
+            if fold >= 2 and x.shape[0] == 1 and cfg.resblock == "1":
+                halo = stage_fold_halo(u, k, cfg.resblock_kernel_sizes,
+                                       cfg.resblock_dilation_sizes)
+                if fold_legal(x.shape[-1], fold, halo):
+                    seg_len = x.shape[-1] // fold
+                    x = fold_time(x, fold, halo)
+                    folded = True
+            x = self.ups[i][0](x)
             polyphase = cfg.resblock == "1" and ch <= self.cf_max_channels
+            int8 = cfg.resblock == "1" and not polyphase and 0 < self.int8_min_channels <= ch
             acc = None
             for blk in blocks:
-                h = blk(x, polyphase)
+                h = blk(x, polyphase, int8) if int8 else blk(x, polyphase)
                 acc = h if acc is None else acc + h
             x = acc / nk
+            if folded:
+                x = unfold_time(x, fold, halo * u, seg_len * u)
         polyphase = cfg.resblock == "1" and x.shape[1] <= self.cf_max_channels
         h = self.conv_post(self.activation_post(x, polyphase))
         return torch.tanh(h)[:, 0, :]

@@ -12,6 +12,7 @@ as one (`DenseReluDense.wi`); see `fuse_t5_state_dict`.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -48,6 +49,18 @@ def relative_position_buckets(qlen: int, klen: int, num_buckets: int = 32,
     ).astype(np.int64)
     large = np.minimum(large, nb - 1)
     return out + np.where(arel < max_exact, arel, large)
+
+
+@functools.lru_cache(maxsize=None)
+def bucket_table(qlen: int, klen: int, num_buckets: int, max_distance: int,
+                 device: torch.device) -> torch.Tensor:
+    """`relative_position_buckets` as an int64 tensor on `device`, built
+    once per shape and device: a forward copies nothing from the host, so
+    it can be captured in a CUDA graph. Built outside inference mode, so
+    that a forward under autograd may save it."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(relative_position_buckets(qlen, klen, num_buckets,
+                                                          max_distance)).to(device)
 
 
 class RMSNorm(nn.Module):
@@ -155,10 +168,10 @@ class T5Encoder(nn.Module):
         cfg = self.config
         t = input_ids.shape[1]
         h = self.shared(input_ids)
-        buckets = torch.from_numpy(relative_position_buckets(
-            t, t, cfg.relative_attention_num_buckets, cfg.relative_attention_max_distance))
         rel = self.encoder.block[0].layer[0].SelfAttention.relative_attention_bias.weight
-        pos_bias = rel[buckets.to(rel.device)].permute(2, 0, 1)[None].to(torch.float32)
+        buckets = bucket_table(t, t, cfg.relative_attention_num_buckets,
+                               cfg.relative_attention_max_distance, rel.device)
+        pos_bias = rel[buckets].permute(2, 0, 1)[None].to(torch.float32)
         for block in self.encoder.block:
             h = block(h, pos_bias)
         return self.encoder.final_layer_norm(h)

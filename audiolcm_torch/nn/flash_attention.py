@@ -147,6 +147,11 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> 
     return out
 
 
+def records_grad(*tensors: torch.Tensor) -> bool:
+    """Whether autograd would record an op on these tensors."""
+    return torch.is_grad_enabled() and any(x.requires_grad for x in tensors)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float) -> torch.Tensor:
     """q, k, v: (B, H, T, D) -> (B, H, T, D); softmax over keys in f32.
@@ -154,7 +159,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     On a CUDA tensor this launches an sm_90a kernel (bf16: tensor cores,
     f32: CUDA cores) or raises; on a CPU tensor it runs the plain version. q, k and v may be strided views (head
     splits, chunks of a fused qkv projection): the kernel reads them in
-    place."""
+    place.
+
+    The kernel has no backward, in this package or the JAX one (whose
+    trainers build the DiT with use_flash=False, as the port's do): on a
+    CUDA tensor that autograd would record it raises, since the ctypes
+    launch would silently cut the gradient."""
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"q, k, v must be one (B, H, T, D) shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -167,6 +177,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_plain(q, k, v, scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
+    if records_grad(q, k, v):
+        raise RuntimeError("the flash attention kernel has no backward: call it under "
+                           "torch.no_grad() or inference_mode, or build the DiT with "
+                           "use_flash=False for training")
     if q.shape[-1] > MAX_D or q.shape[0] * q.shape[1] > 65535 or q.shape[-2] < 1:
         raise ValueError(f"the flash attention kernel takes D <= {MAX_D}, B*H <= 65535 "
                          f"and T >= 1, got {tuple(q.shape)}")

@@ -61,9 +61,20 @@ def alias_free_taps():
     return up_even, up_odd, tuple(float(v) for v in down[0::2]), tuple(float(v) for v in down[1::2])
 
 
+@functools.lru_cache(maxsize=None)
+def _filter_on(ratio: int, kernel_size: int, device: torch.device,
+               dtype: torch.dtype) -> torch.Tensor:
+    """The (1, 1, K) sinc filter on `device` in `dtype`, built once: a
+    forward copies nothing from the host, so it can be captured in a CUDA
+    graph. Built outside inference mode, so that a forward under autograd
+    may save it."""
+    with torch.inference_mode(False):
+        f = torch.from_numpy(kaiser_sinc_filter1d(0.5 / ratio, 0.6 / ratio, kernel_size))
+        return f.to(device=device, dtype=dtype).view(1, 1, -1)
+
+
 def _filter(x: torch.Tensor, ratio: int, kernel_size: int) -> torch.Tensor:
-    f = torch.from_numpy(kaiser_sinc_filter1d(0.5 / ratio, 0.6 / ratio, kernel_size))
-    return f.to(device=x.device, dtype=x.dtype).view(1, 1, -1).expand(x.shape[1], 1, -1)
+    return _filter_on(ratio, kernel_size, x.device, x.dtype).expand(x.shape[1], 1, -1)
 
 
 def upsample1d_cf(x: torch.Tensor, ratio: int = 2, kernel_size: int | None = None) -> torch.Tensor:

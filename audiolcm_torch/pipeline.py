@@ -19,6 +19,7 @@ from typing import Optional
 
 import torch
 
+from audiolcm_torch.aot import graph_key
 from audiolcm_torch.convert import assign_state_dict, fold_weight_norms
 from audiolcm_torch.diffusion.ddim import DDIMConfig, ddim_sample
 from audiolcm_torch.diffusion.lcm import LCMConfig, lcm_sample
@@ -119,6 +120,11 @@ class AudioLCMPipeline:
         self.schedule = schedule if schedule is not None else NoiseSchedule.linear()
         self.lcm_config = lcm_config
         self.default_latent_len = default_latent_len
+        # graph_key -> captured generate (api.prewarm_buckets), all in one
+        # memory pool; generate prefers these, as the JAX package's
+        # generate_jit prefers its AOT executables
+        self._graphs: dict = {}
+        self._graph_pool = None
 
     def encode_text_ids(self, clap_ids, t5_ids) -> torch.Tensor:
         """Token ids -> (B, 2L, d) context: CLAP half first, no masks."""
@@ -142,8 +148,11 @@ class AudioLCMPipeline:
     def vocode(self, mel: torch.Tensor) -> torch.Tensor:
         return self.modules.vocoder(mel)
 
-    def _generator(self, generator):
-        if generator is not None:
+    def _generator(self, generator, *given):
+        """`generator`, or a seed-0 one on the device when something is to
+        be drawn (some of the injected `given` is None): none is made when
+        nothing is drawn, as inside a CUDA graph capture."""
+        if generator is not None or (given and all(g is not None for g in given)):
             return generator
         return torch.Generator(device=self.device).manual_seed(0)
 
@@ -154,8 +163,8 @@ class AudioLCMPipeline:
                               noise: Optional[torch.Tensor] = None):
         """-> (wav (B, 256*2*latent_len) f32, mel (B, 2*latent_len, 80) f32)."""
         latent_len = latent_len or self.default_latent_len
-        z = self.sample_latent(context.to(self.device), latent_len, self._generator(generator),
-                               x_T, noise)
+        z = self.sample_latent(context.to(self.device), latent_len,
+                               self._generator(generator, x_T, noise), x_T, noise)
         mel = self.decode_latent(z)
         wav = self.vocode(mel)
         return wav.float(), mel.float()
@@ -166,7 +175,15 @@ class AudioLCMPipeline:
                  x_T: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None):
         """Token ids -> (wav, mel). Noise is drawn from `generator` (a
         torch.Generator on the pipeline's device; seed 0 when None) unless
-        x_T and the per-step noise are given."""
+        x_T and the per-step noise are given. When `api.prewarm_buckets`
+        captured a graph for these id shapes and dtypes and this latent
+        length, and no draw is given, the graph replays: it draws from the
+        generator in this path's order and returns the same waveform."""
+        latent_len = latent_len or self.default_latent_len
+        if x_T is None and noise is None:
+            graph = self._graphs.get(graph_key(clap_ids, t5_ids, latent_len))
+            if graph is not None:
+                return graph.replay(clap_ids, t5_ids, self._generator(generator))
         context = self.encode_text_ids(clap_ids, t5_ids)
         return self.generate_from_context(context, latent_len, generator, x_T, noise)
 
@@ -202,7 +219,7 @@ class AudioLCMPipeline:
         latent_len = latent_len or self.default_latent_len
         z = self.sample_latent_teacher(context.to(self.device), uncond.to(self.device),
                                        latent_len, num_steps, guidance_scale, use_plms,
-                                       self._generator(generator), x_T, noise)
+                                       self._generator(generator, x_T, noise), x_T, noise)
         mel = self.decode_latent(z)
         wav = self.vocode(mel)
         return wav.float(), mel.float()

@@ -68,11 +68,26 @@ def test_bigvgan_unfused_equals_fused_path(vocoder_case):
     np.testing.assert_allclose(wav.numpy(), golden, atol=2e-5)
 
 
-def test_bigvgan_unported_knobs_raise():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        TorchBigVGAN(TConfig(), fold_t_segments=8)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        TorchBigVGAN(TConfig(), int8_min_channels=384)
+def test_bigvgan_unported_knobs_raise(vocoder_case):
+    """The item-10 knobs that raised before they were ported now build and
+    run at full width on the (1, 16, 80) mel. fold_t_segments=8 folds the
+    C=48 and C=24 stages (the only ones whose length admits the fold here)
+    and moves no number (atol 2e-5 against JAX's golden); int8_min_channels
+    =384 runs the C=768 and C=384 resblock convs as int8 products: a finite
+    waveform within int8's error of the golden (their parity with JAX is
+    held in tests/test_torch_serving_knobs.py)."""
+    mel, params, golden = vocoder_case
+    folded = assign_state_dict(TorchBigVGAN(TConfig(), fold_t_segments=8),
+                               vocoder_from_jax(params))
+    int8 = assign_state_dict(TorchBigVGAN(TConfig(), int8_min_channels=384),
+                             vocoder_from_jax(params))
+    assert folded.fold_t_segments == 8 and int8.int8_min_channels == 384
+    with torch.no_grad():
+        wav_f = folded(torch.from_numpy(mel)).numpy()
+        wav_8 = int8(torch.from_numpy(mel)).numpy()
+    np.testing.assert_allclose(wav_f, golden, atol=2e-5)
+    assert wav_8.shape == golden.shape and np.isfinite(wav_8).all()
+    assert 0 < np.abs(wav_8 - golden).max() < 0.05 * np.abs(golden).max()
 
 
 @pytest.mark.parametrize("knob", [96, 1536])
