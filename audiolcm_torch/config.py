@@ -1,9 +1,14 @@
-"""The reference YAML schema -> the port's modules.
+"""The reference YAML schema -> the port's modules (`audiolcm_tpu/config.py`).
 
-Covers what configs/audiolcm.yaml and a vocoder args.yml need: the three
-targets that YAML names (ConcatDiT2MLP, the 1D AutoencoderKL,
-FrozenCLAPFLANEmbedder) through an explicit registry, and BigVGAN from
-args. Modules are built on the CPU in float32; the pipeline moves them.
+Covers what the three shipped YAMLs (configs/audiolcm.yaml, teacher.yaml,
+autoencoder1d.yaml) and a vocoder args.yml need: the three targets they
+name (ConcatDiT2MLP, the 1D AutoencoderKL, FrozenCLAPFLANEmbedder) through
+an explicit registry in place of the reference's reflection
+(`instantiate_from_config`, ldm/util.py:111-126), and BigVGAN from args.
+`build_from_target` builds a node's modules; `parse_diffusion_config`
+reads an LDM's `model.params` into constructor arguments. Modules are
+built on the CPU in float32; the caller moves them. `load_yaml` imports
+PyYAML only when called.
 """
 
 from __future__ import annotations
@@ -58,6 +63,18 @@ REGISTRY: Dict[str, Callable[[dict], Any]] = {
 }
 
 
+def build_from_target(node: dict):
+    """A `{target, params}` node's modules: the DiT, the VAE, or the text
+    towers as {"clap_text", "t5", "max_length"}."""
+    parsed = _parse(node)
+    if isinstance(parsed, VAEConfig):
+        return AutoencoderKL1D(parsed)
+    if "bert" in parsed:
+        return {"clap_text": ClapTextEncoder(parsed["bert"], parsed["d_proj"]),
+                "t5": T5Encoder(parsed["t5"]), "max_length": parsed["max_length"]}
+    return ConcatDiT2MLP(**parsed)
+
+
 def _parse(node: dict):
     target = node["target"]
     if target not in REGISTRY:
@@ -87,6 +104,10 @@ class DiffusionSystemConfig:
     linear_end: float = 0.012
     mel_length: int = 312
     num_ddim_timesteps: int = 50
+    w_min: float = 4.0
+    w_max: float = 12.0
+    scale_by_std: bool = False
+    base_learning_rate: float = 3.0e-6
 
     def build_dit(self, **knobs) -> ConcatDiT2MLP:
         return ConcatDiT2MLP(**self.dit, **knobs)
@@ -109,7 +130,9 @@ def parse_diffusion_config(cfg: dict) -> DiffusionSystemConfig:
         cond=_parse(p["cond_stage_config"]), timesteps=p.get("timesteps", 1000),
         linear_start=p.get("linear_start", 0.00085), linear_end=p.get("linear_end", 0.012),
         mel_length=p.get("mel_length", 312),
-        num_ddim_timesteps=p.get("num_ddim_timesteps", 50))
+        num_ddim_timesteps=p.get("num_ddim_timesteps", 50), w_min=p.get("w_min", 4.0),
+        w_max=p.get("w_max", 12.0), scale_by_std=p.get("scale_by_std", False),
+        base_learning_rate=cfg["model"].get("base_learning_rate", 3.0e-6))
 
 
 def vocoder_config_from_args(args: dict) -> BigVGANConfig:

@@ -343,3 +343,73 @@ def from_jax(params) -> dict:
         "t5": None if get("t5") is None else t5_from_jax(get("t5")),
         "scale_factor": float(get("scale_factor")),
     }
+
+
+# ---------------------------------------------------------------------------
+# discriminators (JAX parameter trees -> the port's reference-layout state dicts)
+# ---------------------------------------------------------------------------
+
+
+def _conv_any(p: dict, name: str, out: dict) -> None:
+    """Conv kernel (k..., in, out) -> Conv1d/Conv2d weight (out, in, k...)."""
+    k = np.asarray(p["kernel"], np.float32)
+    perm = (k.ndim - 1, k.ndim - 2) + tuple(range(k.ndim - 2))
+    out[f"{name}.weight"] = _t(np.transpose(k, perm))
+    if "bias" in p:
+        out[f"{name}.bias"] = _t(p["bias"])
+
+
+def patchgan_from_jax(params: dict, batch_stats: Optional[dict] = None) -> SD:
+    """NLayerDiscriminator2D / NLayerDiscriminator1dFeats / 1dSpecs: the JAX
+    params (and BatchNorm batch_stats) -> `main.<i>` keys. In order of the
+    forward: conv_0 (main.0), then each (conv_n or conv_tail_j, its norm)
+    pair at main.2+3k / main.3+3k, then conv_out. BatchNorm: scale, bias,
+    mean, var -> weight, bias, running_mean, running_var; ActNorm: loc and
+    scale as (1, C, 1, 1), initialized."""
+    out: SD = {}
+    _conv_any(params["conv_0"], "main.0", out)
+    mids = sorted((int(k[5:]), k) for k in params
+                  if re.fullmatch(r"conv_\d+", k) and k != "conv_0")
+    tails = sorted(k for k in params if k.startswith("conv_tail_"))
+    pairs = [k for _, k in mids] + tails
+    for i, conv in enumerate(pairs):
+        _conv_any(params[conv], f"main.{2 + 3 * i}", out)
+        suffix = conv[len("conv_"):]
+        norm_name = next(n for n in (f"bn_{suffix}", f"norm_{suffix}") if n in params)
+        norm, name = params[norm_name], f"main.{3 + 3 * i}"
+        if "loc" in norm:
+            out[f"{name}.loc"] = _t(norm["loc"]).reshape(1, -1, 1, 1)
+            out[f"{name}.scale"] = _t(norm["scale"]).reshape(1, -1, 1, 1)
+            out[f"{name}.initialized"] = torch.tensor(1, dtype=torch.uint8)
+        else:
+            _norm(norm, name, out)
+            stats = batch_stats[norm_name]
+            out[f"{name}.running_mean"] = _t(stats["mean"])
+            out[f"{name}.running_var"] = _t(stats["var"])
+            out[f"{name}.num_batches_tracked"] = torch.tensor(0)
+    _conv_any(params["conv_out"], f"main.{2 + 3 * len(pairs)}", out)
+    return out
+
+
+def _subdisc(p: dict, name: str, out: dict) -> None:
+    for key, sub in p.items():
+        if m := re.fullmatch(r"conv_(\d+)", key):
+            _conv_any(sub, f"{name}.convs.{m.group(1)}", out)
+    _conv_any(p["conv_post"], f"{name}.conv_post", out)
+
+
+def mpd_from_jax(params: dict, periods=(2, 3, 5, 7, 11)) -> SD:
+    """MultiPeriodDiscriminator: p{period} -> discriminators.<i>."""
+    out: SD = {}
+    for i, period in enumerate(periods):
+        _subdisc(params[f"p{period}"], f"discriminators.{i}", out)
+    return out
+
+
+def mrd_from_jax(params: dict, resolutions=((1024, 120, 600), (2048, 240, 1200),
+                                            (512, 50, 240))) -> SD:
+    """MultiResolutionDiscriminator: r{n_fft} -> discriminators.<i>."""
+    out: SD = {}
+    for i, res in enumerate(resolutions):
+        _subdisc(params[f"r{res[0]}"], f"discriminators.{i}", out)
+    return out

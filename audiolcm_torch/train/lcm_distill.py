@@ -20,6 +20,10 @@ w from an explicit torch.Generator unless the caller injects them, as the
 samplers take x_T and noise. The uncond context is computed once by the
 caller and passed in.
 
+Under torch.distributed the student may be wrapped in DDP
+(`parallel/mesh.py`): each rank draws the global batch's draws and keeps
+its rows, and the reported loss is the mean over the ranks.
+
 A torch optimizer holds its state and is bound to the student's
 parameters, so where the JAX step takes an optax transform, the port's
 state holds the optimizer: `init_train_state(..., optimizer=factory)` with
@@ -39,6 +43,7 @@ from torch import nn
 from audiolcm_torch.diffusion.lcm import DDIMSolver, boundary_scalings
 from audiolcm_torch.diffusion.schedule import NoiseSchedule
 from audiolcm_torch.nn.embeddings import guidance_scale_embedding
+from audiolcm_torch.parallel.mesh import draw_shard, mean_over_ranks, unwrap
 
 
 @dataclasses.dataclass(frozen=True)
@@ -181,12 +186,12 @@ class TrainState:
     optimizer: Any  # OptimizerChain, or any torch optimizer over the student
 
     def state_dict(self) -> dict:
-        return {"step": self.step, "student": self.student.state_dict(),
+        return {"step": self.step, "student": unwrap(self.student).state_dict(),
                 "target": self.target.state_dict(), "optimizer": self.optimizer.state_dict()}
 
     def load_state_dict(self, sd: dict) -> None:
         self.step = int(sd["step"])
-        self.student.load_state_dict(sd["student"])
+        unwrap(self.student).load_state_dict(sd["student"])
         self.target.load_state_dict(sd["target"])
         self.optimizer.load_state_dict(sd["optimizer"])
 
@@ -225,12 +230,12 @@ def make_lcm_distill_step(schedule: NoiseSchedule, cfg: LCMDistillConfig) -> Cal
         z, context = batch.z, batch.context
         bsz, dev, nd = z.shape[0], z.device, z.dim()
         solver = solver_on(dev)
-        index = injected_or(index, lambda: torch.randint(0, cfg.num_ddim_timesteps, (bsz,),
-                                                         generator=generator, device=dev), dev)
-        noise = injected_or(noise, lambda: torch.randn(z.shape, generator=generator,
-                                                       device=dev), dev)
-        w = injected_or(w, lambda: cfg.w_min + (cfg.w_max - cfg.w_min) * torch.rand(
-            (bsz,), generator=generator, device=dev), dev)
+        index = injected_or(index, lambda: draw_shard(lambda n: torch.randint(
+            0, cfg.num_ddim_timesteps, (n,), generator=generator, device=dev), bsz), dev)
+        noise = injected_or(noise, lambda: draw_shard(lambda n: torch.randn(
+            (n,) + z.shape[1:], generator=generator, device=dev), bsz), dev)
+        w = injected_or(w, lambda: cfg.w_min + (cfg.w_max - cfg.w_min) * draw_shard(
+            lambda n: torch.rand((n,), generator=generator, device=dev), bsz), dev)
         t = solver.ddim_timesteps[index]
         t_prev = torch.clamp(t - solver.step_ratio, min=0)
         c_skip_s, c_out_s = (_dims(c, nd) for c in boundary_scalings(t))
@@ -269,6 +274,6 @@ def make_lcm_distill_step(schedule: NoiseSchedule, cfg: LCMDistillConfig) -> Cal
             torch._foreach_mul_(tgt, cfg.ema_decay)
             torch._foreach_add_(tgt, list(state.student.parameters()), alpha=1.0 - cfg.ema_decay)
         state.step += 1
-        return state, {"train/loss": loss.detach(), "train/grad_norm": grad_norm}
+        return state, {"train/loss": mean_over_ranks(loss.detach()), "train/grad_norm": grad_norm}
 
     return step

@@ -7,7 +7,8 @@ eps MSE (logvar_init 0 and not learned: division by exp(0)), plus
 original_elbo_weight (0 by default) times the lvlb-weighted term. Global
 norm clip 1.0, AdamW over the DiT at the warm-up schedule. f32, the DiT
 built with use_flash=False. t and the noise come from an explicit
-torch.Generator unless injected.
+torch.Generator unless injected; under torch.distributed each rank keeps
+its rows of the global batch's draws (`parallel/mesh.py`).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 from torch import nn
 
 from audiolcm_torch.diffusion.schedule import NoiseSchedule
+from audiolcm_torch.parallel.mesh import draw_shard, mean_over_ranks, unwrap
 from audiolcm_torch.train.lcm_distill import (
     OptimizerChain,
     adamw_chain,
@@ -48,12 +50,12 @@ class TeacherState:
     optimizer: Any
 
     def state_dict(self) -> dict:
-        return {"step": self.step, "model": self.model.state_dict(),
+        return {"step": self.step, "model": unwrap(self.model).state_dict(),
                 "optimizer": self.optimizer.state_dict()}
 
     def load_state_dict(self, sd: dict) -> None:
         self.step = int(sd["step"])
-        self.model.load_state_dict(sd["model"])
+        unwrap(self.model).load_state_dict(sd["model"])
         self.optimizer.load_state_dict(sd["optimizer"])
 
 
@@ -86,10 +88,10 @@ def make_teacher_step(schedule: NoiseSchedule, cfg: TeacherConfig) -> Callable:
              generator: Optional[torch.Generator] = None, t: Optional[torch.Tensor] = None,
              noise: Optional[torch.Tensor] = None):
         bsz, dev = z.shape[0], z.device
-        t = injected_or(t, lambda: torch.randint(0, schedule.num_timesteps, (bsz,),
-                                                 generator=generator, device=dev), dev)
-        noise = injected_or(noise, lambda: torch.randn(z.shape, generator=generator,
-                                                       device=dev), dev)
+        t = injected_or(t, lambda: draw_shard(lambda n: torch.randint(
+            0, schedule.num_timesteps, (n,), generator=generator, device=dev), bsz), dev)
+        noise = injected_or(noise, lambda: draw_shard(lambda n: torch.randn(
+            (n,) + z.shape[1:], generator=generator, device=dev), bsz), dev)
         x_noisy = schedule.q_sample(z, t, noise)
         eps = state.model(x_noisy, t, context, None)
         per_sample = torch.mean((eps - noise) ** 2, dim=tuple(range(1, z.dim())))
@@ -102,8 +104,8 @@ def make_teacher_step(schedule: NoiseSchedule, cfg: TeacherConfig) -> Callable:
         grad_norm = global_norm(full_grads(state.model))
         state.optimizer.step()
         state.step += 1
-        return state, {"train/loss_simple": loss_simple.detach(), "train/loss": loss.detach(),
-                       "train/grad_norm": grad_norm}
+        return state, {"train/loss_simple": mean_over_ranks(loss_simple.detach()),
+                       "train/loss": mean_over_ranks(loss.detach()), "train/grad_norm": grad_norm}
 
     return step
 

@@ -58,12 +58,23 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                 in wav mode on one 10 s wav
  10. roundtrip— a full-width f32 VAE encode on the card against the CPU; the
                 reconstruct CLI's roundtrip() at batch 8, 10 s
-then the kernels line and, last, the device line.
+ 11. train    — the training line at the shipped widths, f32, TF32 off, K1
+                and K3 launched 0 times in each: ddp (after teacher_train:
+                one LCM step with the student in DDP over a group of one on
+                NCCL against the unwrapped step), train_vae (the VAE GAN of
+                configs/autoencoder1d.yaml: one step card vs CPU, ms per
+                step at batch 4, one CLI epoch), train_cli (the training
+                CLI on configs/teacher.yaml and configs/audiolcm.yaml with
+                fresh parts and stub tokenizers), train_vocoder (the vocoder
+                GAN at batch 2 card vs CPU, 5 steps at batch 32)
+then the seconds of each phase, the kernels line and, last, the device
+line.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import re
@@ -99,6 +110,7 @@ FOLD_F32_TOL = 2e-5  # f32 batch-1 waveform, fold 8 vs 0: the f32 module bar
 # roundings of one function through different cuDNN algorithms
 FOLD_BF16_RATIO = 1.05
 TRAIN_RTOL = 1e-4  # f32 training step: loss card vs CPU; the update's floor (L2 vs f64)
+VAE_SGD_LR = 1e-6  # the VAE GAN parity step's SGD rate: updates ~1e-2 of O(0.05) weights
 
 
 def emit(obj) -> None:
@@ -1649,6 +1661,579 @@ def train_phase(device, mods, full: bool, card: dict, kind: str) -> dict:
     return row
 
 
+def training_counts_zero(kind: str) -> dict:
+    """The launch counts since reset_counts(); a trainer runs BigVGAN unfused
+    and the DiT on einsum attention, so K1 and K3 must not have launched."""
+    counts = read_counts()
+    k1_k3 = {k: counts[k] for k in ("amp_stage", "amp_stage_mma", "flash_attention",
+                                    "flash_attention_tc")}
+    if any(k1_k3.values()):
+        raise AssertionError(f"{kind}: K1/K3 launched in a training phase: {k1_k3}")
+    return k1_k3
+
+
+def step_flop(run) -> float:
+    """FLOP of one call of run(): every matmul and convolution that reaches
+    the dispatcher (forward, backward and R1's double backward), counted by
+    torch.utils.flop_counter's formulas (its FlopCounterMode's module hooks
+    do not allow autograd.grad on a leaf, which R1 takes)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils.flop_counter import flop_registry
+
+    class Count(TorchDispatchMode):
+        total = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            formula = flop_registry.get(func._overloadpacket)
+            if formula is not None:
+                self.total += formula(*args, **(kwargs or {}), out_val=out)
+            return out
+
+    with Count() as counter:
+        run()
+    return float(counter.total)
+
+
+def timed_steps(step, n: int) -> list:
+    """CUDA-event ms of n calls of step()."""
+    times = []
+    for _ in range(n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        step()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return times
+
+
+def write_manifest(root: str, n: int, mel_num: int, frames: int, seed: int) -> None:
+    """n random (mel_num, frames) .npy mels and a data.tsv over them (the
+    first 100 rows are the val split)."""
+    import csv
+    import os
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(root, exist_ok=True)
+    with open(os.path.join(root, "data.tsv"), "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=["name", "dataset", "ori_cap", "caption", "mel_path",
+                                          "audio_path", "duration"], delimiter="\t")
+        w.writeheader()
+        for i in range(n):
+            path = os.path.join(root, f"m{i}.npy")
+            np.save(path, (rng.standard_normal((mel_num, frames)) - 2.0).astype(np.float32))
+            w.writerow({"name": f"c{i}", "dataset": "syn", "ori_cap": f"a sound {i}",
+                        "caption": f"<sound {i}& all>", "mel_path": path, "audio_path": "",
+                        "duration": frames / 62.5})
+
+
+def read_run(logroot: str) -> tuple:
+    """(metrics.jsonl records, checkpoint steps) of the one run under logroot."""
+    import os
+
+    (run,) = os.listdir(logroot)
+    with open(os.path.join(logroot, run, "metrics.jsonl")) as f:
+        lines = [json.loads(x) for x in f]
+    return lines, sorted(int(s) for s in os.listdir(os.path.join(logroot, run, "checkpoints")))
+
+
+def vae_train_config(full: bool, root: str) -> dict:
+    """configs/autoencoder1d.yaml (the rehearsal: ch 32, ch_mult (1, 2), mel
+    16, 32 frames, discriminator ndf 8 with 2 strided layers) with
+    disc_start 0 and the data at `root`."""
+    from audiolcm_torch.config import load_yaml
+
+    cfg = load_yaml("configs/autoencoder1d.yaml")
+    p = cfg["model"]["params"]
+    p["lossconfig"]["params"]["disc_start"] = 0
+    if not full:
+        p.update(embed_dim=4)
+        p["ddconfig"].update(in_channels=16, out_ch=16, z_channels=4, ch=32, ch_mult=[1, 2],
+                             num_res_blocks=1, attn_layers=[])
+        p["lossconfig"]["params"].update(disc_hidden_size=8, disc_num_layers=2)
+    cfg["data"]["params"].update(spec_dir_path=root, mel_num=80 if full else 16,
+                                 spec_len=624 if full else 32)
+    return cfg
+
+
+def train_vae_phase(device, full: bool, card: dict) -> dict:
+    """The VAE GAN at configs/autoencoder1d.yaml's widths (VAE ch 384, embed
+    20, mel 80 x 624 frames, NLayerDiscriminator2D ndf 64, 3 layers, one
+    input channel), disc_start 0 so that the adversarial term, the adaptive
+    weight and R1 are live; f32, TF32 off.
+
+    1. One generator + discriminator step on the card and on the CPU at
+       batch 2 from the same weights (`init_random_`) and posterior noise,
+       SGD at VAE_SGD_LR (the L1 sum over 80 x 624 bins makes gradients of
+       ~1e4-1e5; at lr 1 the updated VAE's reconstruction overflows f32 in
+       the discriminator step): the seven losses at TRAIN_RTOL in f32 (the
+       two logit means printed); in f64 the losses and the VAE's and
+       discriminator's updates (`updates_agree`) at TRAIN_RTOL, the f32
+       updates' distance from the f64 one printed (as the distillation row:
+       the L1 sum's gradient takes the sign of each reconstruction error,
+       so f32 rounding near 0 moves it by its full size).
+    2. ms per step at the config's batch 4 with the shipped Adam pair (CUDA
+       events, median of 5), peak GB, the f32 bound (`step_flop`'s FLOP of
+       one step over the CUDA cores' f32 rate).
+    3. `cli.train.main` for one epoch on 132 random mels (100 val, 32
+       train: 8 steps at batch 4): metrics.jsonl with finite val losses
+       and a checkpoint. K1 and K3 launch 0 times in all of it."""
+    import copy
+    import os
+
+    from audiolcm_torch import config as cfg_mod
+    from audiolcm_torch.cli import train as cli
+    from audiolcm_torch.models.discriminators import NLayerDiscriminator2D
+    from audiolcm_torch.train import vae_gan
+
+    t0 = time.time()
+    reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = vae_train_config(full, os.path.join(tmp, "data"))
+        dp, lp = cfg["data"]["params"], cfg["model"]["params"]["lossconfig"]["params"]
+        mel_num, frames = dp["mel_num"], dp["spec_len"]
+        torch.manual_seed(60)
+        vae = cfg_mod.build_from_target(cfg["model"])
+        disc = NLayerDiscriminator2D(1, lp.get("disc_hidden_size", 64),
+                                     lp.get("disc_num_layers", 3))
+        for i, m in enumerate((vae, disc)):  # O(1) activations and patch logits
+            init_random_(m, torch.Generator().manual_seed(64 + i))
+        gcfg = vae_gan.VAEGANConfig(disc_start=0)
+        g = torch.Generator().manual_seed(61)
+        mel = torch.randn(2, frames, mel_num, generator=g) - 2.0
+        down = 2 ** len(vae.config.down_layers)
+        noise = torch.randn(2, frames // down, vae.config.embed_dim, generator=g)
+
+        def one_step(dev, dtype=torch.float32):
+            st = vae_gan.init_vae_gan_state(copy.deepcopy(vae).to(dev, dtype),
+                                            copy.deepcopy(disc).to(dev, dtype), gcfg,
+                                            optimizer=lambda p: torch.optim.SGD(
+                                                p, lr=VAE_SGD_LR))
+            _, _, step = vae_gan.make_vae_gan_steps(gcfg)
+            st, m = step(st, mel.to(dev, dtype), noise=noise.to(dev, dtype))
+            params = {**{"vae." + k: v for k, v in st.vae.state_dict().items()},
+                      **{"disc." + k: v for k, v in st.disc.state_dict().items()
+                         if v.is_floating_point()}}
+            return {k: float(v) for k, v in m.items()}, {k: v.detach() for k, v in params.items()}
+
+        before = {**{"vae." + k: v.double() for k, v in vae.state_dict().items()},
+                  **{"disc." + k: v.double() for k, v in disc.state_dict().items()
+                     if v.is_floating_point()}}
+        cpu = torch.device("cpu")
+        (m_dev, a_dev), (m_cpu, a_cpu) = one_step(device), one_step(cpu)
+        (m_dev64, a_dev64), (m_64, a_64) = (one_step(device, torch.float64),
+                                            one_step(cpu, torch.float64))
+        # the losses; the logit means are reported beside them
+        rel = lambda a, b: max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12) for k in b
+                               if "logits" not in k)
+        same = updates_agree(a_dev64, a_64, before)
+        row = {"batch_check": 2, "frames": frames, "mel": mel_num, "dtype": "float32",
+               "tf32": False, "disc_start": 0, "losses_card": m_dev,
+               "loss_rel_diff_max": rel(m_dev, m_cpu), "loss_f64_rel_diff_max": rel(m_dev64, m_64),
+               "rtol": TRAIN_RTOL, "update_f64_card_vs_cpu": same,
+               "update_f32_card_vs_f64": updates_agree(a_dev, a_64, before),
+               "update_f32_cpu_vs_f64": updates_agree(a_cpu, a_64, before)}
+        if not (row["loss_rel_diff_max"] <= TRAIN_RTOL
+                and row["loss_f64_rel_diff_max"] <= TRAIN_RTOL
+                and same["update_rel_l2_diff"] <= TRAIN_RTOL
+                and same["update_max_diff_over_max_update"] <= TRAIN_RTOL
+                and m_dev["train/g_loss"] != 0 and m_dev["train/r1_penalty"] > 0):
+            emit({"phase": "train_vae", **row})
+            raise AssertionError(f"train_vae: card vs CPU step: {row}")
+
+        batch = dp["batch_size"]
+        if device.type == "cuda":
+            st = vae_gan.init_vae_gan_state(copy.deepcopy(vae).to(device),
+                                            copy.deepcopy(disc).to(device), gcfg)
+            _, _, step = vae_gan.make_vae_gan_steps(gcfg)
+            mel_b = torch.randn(batch, frames, mel_num, device=device) - 2.0
+            gen = torch.Generator(device).manual_seed(62)
+            run = lambda: step(st, mel_b, gen)
+            run()
+            flop = step_flop(run)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times = timed_steps(run, 5)
+            row.update(batch=batch, ms_per_step=sorted(times)[2], ms_steps=times,
+                       peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                       tflop_per_step=flop / 1e12, f32_bound_ms=1e3 * flop / PEAK_F32,
+                       card=card["nvidia_smi"])
+            del st
+        write_manifest(dp["spec_dir_path"], 100 + 8 * batch, mel_num, frames, seed=63)
+        path = os.path.join(tmp, "vae.yaml")
+        import yaml
+
+        with open(path, "w") as f:
+            yaml.safe_dump(cfg, f)
+        logroot = os.path.join(tmp, "logs")
+        cli.main(["-b", path, "-t", "--max_epochs", "1", "-l", logroot, "--device", str(device)])
+        lines, ckpts = read_run(logroot)
+    val = [x for x in lines if "val/nll_loss" in x]
+    row.update(cli_steps=8, cli_checkpoints=ckpts, cli_epoch_time_s=val[-1]["epoch_time_s"],
+               cli_val_nll_loss=val[-1]["val/nll_loss"], cli_val_disc_loss=val[-1]["val/disc_loss"],
+               launches=training_counts_zero("train_vae"), seconds=time.time() - t0)
+    if not (ckpts == [8] and all(map(math.isfinite, (val[-1]["val/nll_loss"],
+                                                     val[-1]["val/disc_loss"])))):
+        emit({"phase": "train_vae", **row})
+        raise AssertionError(f"train_vae: the CLI run: {row}")
+    emit({"phase": "train_vae", **row})
+    return row
+
+
+class StubTokenizers:
+    """Deterministic token ids in place of the HF tokenizers (no assets on
+    the machine): 77 ids per caption, the same for every caption."""
+
+    max_length = 77
+
+    def __init__(self, *args, **kwargs):
+        pass
+
+    def __call__(self, ori, struct):
+        ids = (torch.arange(self.max_length)[None, :].repeat(len(ori), 1) * 7) % 997
+        return ids, ids
+
+
+def diffusion_train_config(full: bool, name: str, root: str, other: str) -> dict:
+    """configs/teacher.yaml or configs/audiolcm.yaml with the data at `root`
+    (teacher: `other` as its second pool); the rehearsal shrinks the DiT,
+    the VAE and the towers (bert_config / t5_config)."""
+    from audiolcm_torch.config import load_yaml
+
+    cfg = load_yaml(f"configs/{name}.yaml")
+    p = cfg["model"]["params"]
+    data = {"batch_size": cfg["data"]["params"]["batch_size"], "mel_num": 80 if full else 16}
+    if name == "teacher":
+        data.update(main_spec_dir_path=root, other_spec_dir_path=other)
+    else:
+        data.update(spec_dir_path=root)
+    cfg["data"] = {"params": data}
+    if not full:
+        p["unet_config"]["params"].update(context_dim=32, hidden_size=32, depth=1, num_heads=4)
+        p["first_stage_config"]["params"]["ddconfig"].update(
+            in_channels=16, out_ch=16, ch=32, ch_mult=[1, 2], num_res_blocks=1, attn_layers=[])
+        p["cond_stage_config"]["params"].update(
+            d_proj=32, bert_config={"vocab_size": 1000, "hidden_size": 16, "num_layers": 1,
+                                    "num_heads": 2, "intermediate_size": 32,
+                                    "max_position_embeddings": 80},
+            t5_config={"vocab_size": 1000, "d_model": 32, "d_kv": 8, "d_ff": 48,
+                       "num_layers": 1, "num_heads": 2})
+    return cfg
+
+
+def train_cli_phase(device, full: bool, card: dict) -> list:
+    """`cli.train.main` at the full widths of configs/teacher.yaml (two
+    pools) and configs/audiolcm.yaml: the shipped DiT, VAE, BERT-base and
+    T5-large towers fresh from `_fill_missing_parts` (no checkpoint exists
+    here), stub tokenizers, f32 with TF32 off, the YAMLs' batch sizes
+    (teacher 4, LCM 8), 10 s mels (624 frames); 2 epochs of 2 train batches
+    (teacher: 2 main + 2 other batches) on a synthetic manifest. Per run:
+    ms per step (host clock over the second epoch's steps, tokenization
+    and the frozen encoders included), peak GB (the Trainer's), the
+    metrics.jsonl with a finite val loss, the checkpoints, 0
+    K1 / K3 launches."""
+    import os
+
+    import yaml
+
+    from audiolcm_torch import api
+    from audiolcm_torch.cli import train as cli
+
+    rows = []
+    frames = 624 if full else 32
+    saved = api.Tokenizers
+    api.Tokenizers = StubTokenizers
+    try:
+        for name, val_key in (("teacher", "val/loss_simple"), ("audiolcm", "val/loss")):
+            t0 = time.time()
+            reset_counts()
+            with tempfile.TemporaryDirectory() as tmp:
+                root, other = os.path.join(tmp, "main"), os.path.join(tmp, "other")
+                cfg = diffusion_train_config(full, name, root, other)
+                batch = cfg["data"]["params"]["batch_size"]
+                mel_num = cfg["data"]["params"]["mel_num"]
+                write_manifest(root, 100 + 2 * batch, mel_num, frames, seed=70)
+                if name == "teacher":
+                    write_manifest(other, 2 * batch, mel_num, frames, seed=71)
+                path = os.path.join(tmp, f"{name}.yaml")
+                with open(path, "w") as f:
+                    yaml.safe_dump(cfg, f)
+                logroot = os.path.join(tmp, "logs")
+                if device.type == "cuda":
+                    torch.cuda.reset_peak_memory_stats()
+                cli.main(["-b", path, "-t", "--max_epochs", "2", "-l", logroot,
+                          "--device", str(device)])
+                lines, ckpts = read_run(logroot)
+            epochs = [x for x in lines if "epoch_time_s" in x]
+            steps = epochs[-1]["step"] - epochs[0]["step"]
+            row = {"config": f"configs/{name}.yaml", "batch": batch, "frames": frames,
+                   "steps": epochs[-1]["step"], "checkpoints": ckpts,
+                   "val_loss": epochs[-1].get(val_key),
+                   "launches": training_counts_zero(f"train_cli {name}"),
+                   "seconds": time.time() - t0}
+            if device.type == "cuda":
+                row.update(ms_per_step=1e3 * epochs[-1]["epoch_time_s"] / steps,
+                           peak_mem_gb=epochs[-1]["peak_memory_mb"] * 2 ** 20 / 1e9,
+                           card=card["nvidia_smi"])
+            if not (ckpts and ckpts[-1] == epochs[-1]["step"] and row["val_loss"] is not None
+                    and math.isfinite(row["val_loss"])):
+                emit({"phase": "train_cli", **row})
+                raise AssertionError(f"train_cli {name}: {row}")
+            emit({"phase": "train_cli", **row})
+            rows.append(row)
+    finally:
+        api.Tokenizers = saved
+    return rows
+
+
+def vocoder_train_config(full: bool) -> dict:
+    """bigvgan_audioset16khz_80band.json: vocoder_args plus its training
+    keys (segment 8192, batch 32, AdamW 1e-4 (0.8, 0.99), decay 0.999, MPD
+    periods 2-11, the three MRD resolutions); the rehearsal's narrow
+    generator, batch 2."""
+    return {**vocoder_args(full), "segment_size": 8192, "batch_size": 32 if full else 2,
+            "fmax_for_loss": None, "learning_rate": 1e-4, "adam_b1": 0.8, "adam_b2": 0.99,
+            "lr_decay": 0.999, "mpd_reshapes": [2, 3, 5, 7, 11],
+            "discriminator_channel_mult": 1,
+            "resolutions": [[1024, 120, 600], [2048, 240, 1200], [512, 50, 240]]}
+
+
+def train_vocoder_phase(device, full: bool, card: dict) -> dict:
+    """The vocoder GAN CLI's build at the 16 kHz 80-band config (BigVGAN
+    1536 -> 24 channels, unfused; MPD + MRD), f32 with TF32 off, on random
+    16 kHz wavs written with scipy.
+
+    1. One discriminator + generator step on the card and on the CPU at
+       batch 2 from the same weights and segments, SGD lr 1: the five
+       losses at TRAIN_RTOL.
+    2. `fit` for 5 steps at the config's batch 32 (halved while the card
+       runs out of memory, then `reduced` says so): ms per step (CUDA
+       events around each step, median), peak GB, the f32 bound
+       (`step_flop` over one step), metrics.jsonl and a checkpoint; 0
+       K1 / K3 launches."""
+    import copy
+    import os
+
+    import numpy as np
+    from scipy.io import wavfile
+
+    from audiolcm_torch.cli import train_vocoder as tv
+    from audiolcm_torch.dsp.mel import MelConfig, MelSpectrogram
+    from audiolcm_torch.train import vocoder_gan
+
+    t0 = time.time()
+    reset_counts()
+    h = vocoder_train_config(full)
+    with tempfile.TemporaryDirectory() as tmp:
+        rng = np.random.default_rng(80)
+        with open(os.path.join(tmp, "wavs.tsv"), "w") as f:
+            f.write("name\taudio_path\n")
+            for i in range(8):
+                path = os.path.join(tmp, f"w{i}.wav")
+                wavfile.write(path, 16000, (rng.standard_normal(32000) * 4000).astype(np.int16))
+                f.write(f"w{i}\t{path}\n")
+        with open(os.path.join(tmp, "config.json"), "w") as f:
+            json.dump(h, f)
+        # 1. card vs CPU, batch 2
+        torch.manual_seed(81)
+        gen, mpd, mrd = tv.build_models(h, "cpu")
+        mel_cfg = MelConfig(sample_rate=16000, n_fft=1024, win_size=1024, hop_size=256,
+                            n_mels=80, fmin=0.0, fmax=8000.0)
+        seg = next(tv.segment_loader(os.path.join(tmp, "wavs.tsv"), 2, 8192, 82,
+                                     MelSpectrogram(mel_cfg, device="cpu")))
+        vcfg = vocoder_gan.VocoderGANConfig()
+
+        def one_step(dev):
+            st = vocoder_gan.init_vocoder_gan_state(
+                *(copy.deepcopy(m).to(dev) for m in (gen, mpd, mrd)), vcfg,
+                optimizer=lambda p: torch.optim.SGD(p, lr=1.0))
+            dstep, gstep = vocoder_gan.make_vocoder_gan_steps(
+                vcfg, MelSpectrogram(dataclasses.replace(mel_cfg, fmax=8000.0), device=dev))
+            mel = torch.as_tensor(seg["mel"], device=dev)
+            wav = torch.as_tensor(seg["wav"], device=dev)
+            st, dm = dstep(st, mel, wav)
+            st, gm = gstep(st, mel, wav)
+            return {k: float(v) for k, v in {**dm, **gm}.items()}
+
+        m_dev, m_cpu = one_step(device), one_step(torch.device("cpu"))
+        rel = max(abs(m_dev[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-12) for k in m_cpu)
+        row = {"batch_check": 2, "segment": 8192, "dtype": "float32", "tf32": False,
+               "losses_card": m_dev, "loss_rel_diff_max": rel, "rtol": TRAIN_RTOL}
+        if not rel <= TRAIN_RTOL:
+            emit({"phase": "train_vocoder", **row})
+            raise AssertionError(f"train_vocoder: card vs CPU step: {row}")
+        del gen, mpd, mrd
+        # 2. fit at the config's batch
+        batch, reduced = h["batch_size"], None
+        while True:
+            h["batch_size"] = batch
+            with open(os.path.join(tmp, "config.json"), "w") as f:
+                json.dump(h, f)
+            args = tv.parse_args(["--config", os.path.join(tmp, "config.json"), "--tsv_path",
+                                  os.path.join(tmp, "wavs.tsv"), "--checkpoint_path",
+                                  os.path.join(tmp, f"run{batch}"), "--device", str(device)])
+            try:
+                built = tv.build(args)
+                trainer, times = built["trainer"], []
+                inner = trainer.step_fn
+                if device.type == "cuda":
+                    def timed(state, b, g, inner=inner):
+                        out = []
+                        times.extend(timed_steps(lambda: out.append(inner(state, b, g)), 1))
+                        return out[0]
+
+                    trainer.step_fn = timed
+                    torch.cuda.reset_peak_memory_stats()
+                trainer.log_every = 1
+                tv.fit(built, epochs=1, steps_per_epoch=5)
+                break
+            except torch.cuda.OutOfMemoryError:
+                built = trainer = inner = None
+                torch.cuda.empty_cache()
+                batch, reduced = batch // 2, f"batch {h['batch_size']} did not fit; halved"
+                if batch < 1:
+                    raise
+        with open(os.path.join(tmp, f"run{batch}", "metrics.jsonl")) as f:
+            lines = [json.loads(x) for x in f]
+        ckpts = os.listdir(os.path.join(tmp, f"run{batch}", "checkpoints"))
+        gen_losses = [x["train/gen_loss"] for x in lines if "train/gen_loss" in x]
+        row.update(batch=batch, reduced=reduced, fit_steps=built["state"].step,
+                   gen_losses=gen_losses, checkpoints=sorted(ckpts))
+        if device.type == "cuda":
+            sample = next(built["loader_factory"](0, 1))
+            flop = step_flop(lambda: inner(built["state"], sample, None))
+            row.update(ms_per_step=sorted(times)[len(times) // 2], ms_steps=times,
+                       peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                       tflop_per_step=flop / 1e12, f32_bound_ms=1e3 * flop / PEAK_F32,
+                       card=card["nvidia_smi"])
+    row.update(launches=training_counts_zero("train_vocoder"), seconds=time.time() - t0)
+    if not (len(gen_losses) == 5 and all(map(math.isfinite, gen_losses)) and ckpts):
+        emit({"phase": "train_vocoder", **row})
+        raise AssertionError(f"train_vocoder: fit: {row}")
+    emit({"phase": "train_vocoder", **row})
+    return row
+
+
+def ddp_phase(device, mods, full: bool, card: dict) -> dict:
+    """The trainers inside a process group of one (NCCL on the card, gloo in
+    the rehearsal) against the same steps outside it, from the same weights
+    and draws, SGD, f32: one LCM distillation step with the student in
+    DistributedDataParallel (batch 8), and one VAE GAN step at
+    configs/autoencoder1d.yaml's widths (batch 2), whose discriminator
+    BatchNorm then sums its statistics through the differentiable
+    all-reduce, R1's double backward included. The same losses, and the
+    updates within the f32 bar TRAIN_RTOL (`updates_agree`: DDP's bucketed
+    backward may sum a gradient in another order; a second plain LCM step
+    shows the card's own repeat spread). A run over several cards needs a
+    machine with them."""
+    import copy
+    import os
+    import socket
+
+    import torch.distributed as dist
+
+    from audiolcm_torch import config as cfg_mod
+    from audiolcm_torch.diffusion.schedule import NoiseSchedule
+    from audiolcm_torch.models.discriminators import NLayerDiscriminator2D
+    from audiolcm_torch.models.dit import ConcatDiT2MLP
+    from audiolcm_torch.parallel import mesh
+    from audiolcm_torch.train import lcm_distill as L
+    from audiolcm_torch.train import vae_gan
+
+    t0 = time.time()
+    reset_counts()
+    batch, latent = (8, 312) if full else (2, 16)
+    ctx, uc = train_contexts(mods, device, batch, seed=90)
+    with torch.device(device):
+        dit = ConcatDiT2MLP(**dit_kwargs(full))
+    init_random_(dit, torch.Generator(device).manual_seed(91))
+    g = torch.Generator(device).manual_seed(92)
+    z = torch.randn(batch, latent, dit.in_channels, generator=g, device=device)
+    cfg = L.LCMDistillConfig()
+    vcfg = vae_train_config(full, "")
+    lp = vcfg["model"]["params"]["lossconfig"]["params"]
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(94)
+        vae = cfg_mod.build_from_target(vcfg["model"]).to(device)
+        disc = NLayerDiscriminator2D(1, lp.get("disc_hidden_size", 64),
+                                     lp.get("disc_num_layers", 3)).to(device)
+    for i, m in enumerate((vae, disc)):
+        init_random_(m, torch.Generator(device).manual_seed(95 + i))
+    mel_num, frames = vcfg["data"]["params"]["mel_num"], vcfg["data"]["params"]["spec_len"]
+    mel = torch.randn(2, frames, mel_num, generator=g, device=device) - 2.0
+    gcfg = vae_gan.VAEGANConfig(disc_start=0)
+
+    def lcm_step(wrap: bool):
+        state = L.init_train_state(copy.deepcopy(dit), cfg,
+                                   optimizer=lambda p: torch.optim.SGD(p, lr=1.0))
+        if wrap:
+            state.student = mesh.wrap_ddp(state.student)
+        step = L.make_lcm_distill_step(NoiseSchedule.linear(), cfg)
+        state, m = step(state, dit, L.Batch(z, ctx), uc, torch.Generator(device).manual_seed(93))
+        return float(m["train/loss"]), mesh.unwrap(state.student).state_dict(), type(
+            state.student).__name__
+
+    def gan_step():
+        st = vae_gan.init_vae_gan_state(copy.deepcopy(vae), copy.deepcopy(disc), gcfg,
+                                        optimizer=lambda p: torch.optim.SGD(p, lr=VAE_SGD_LR))
+        step = vae_gan.make_vae_gan_steps(gcfg)[2]
+        st, m = step(st, mel, torch.Generator(device).manual_seed(96))
+        return ({k: float(v) for k, v in m.items()},
+                {**{"vae." + k: v for k, v in st.vae.state_dict().items()},
+                 **{"disc." + k: v for k, v in st.disc.state_dict().items()
+                    if v.is_floating_point()}})
+
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    env = {"RANK": "0", "WORLD_SIZE": "1", "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        assert mesh.init_distributed(device)
+        backend = dist.get_backend()
+        loss_ddp, sd_ddp, wrapped = lcm_step(True)
+        gan_in, gan_sd_in = gan_step()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    loss, sd, plain = lcm_step(False)
+    loss_again, sd_again, _ = lcm_step(False)
+    gan_out, gan_sd_out = gan_step()
+    before = {k: v.detach().cpu().double() for k, v in dit.state_dict().items()}
+    gan_before = {**{"vae." + k: v.cpu().double() for k, v in vae.state_dict().items()},
+                  **{"disc." + k: v.cpu().double() for k, v in disc.state_dict().items()
+                     if v.is_floating_point()}}
+    same = updates_agree(sd_ddp, sd, before)
+    gan_same = updates_agree(gan_sd_in, gan_sd_out, gan_before)
+    gan_rel = max(abs(gan_in[k] - gan_out[k]) / max(abs(gan_out[k]), 1e-12) for k in gan_out)
+    row = {"backend": backend, "world_size": 1, "batch": batch, "latent": latent,
+           "wrapped": wrapped, "unwrapped": plain, "loss_ddp": loss_ddp, "loss": loss,
+           "update_ddp_vs_plain": same, "rtol": TRAIN_RTOL,
+           "repeat_loss_equal": loss_again == loss,
+           "update_plain_repeat": updates_agree(sd_again, sd, before),
+           "vae_gan_loss_rel_diff_max": gan_rel, "vae_gan_update_group_vs_plain": gan_same,
+           "launches": training_counts_zero("ddp"), "seconds": time.time() - t0,
+           "card": card["nvidia_smi"]}
+    emit({"phase": "ddp", **row})
+    if not (wrapped == "DistributedDataParallel" and loss_ddp == loss
+            and same["update_rel_l2_diff"] <= TRAIN_RTOL
+            and same["update_max_diff_over_max_update"] <= TRAIN_RTOL
+            and gan_rel <= TRAIN_RTOL and gan_same["update_rel_l2_diff"] <= TRAIN_RTOL
+            and gan_same["update_max_diff_over_max_update"] <= TRAIN_RTOL):
+        raise AssertionError(f"ddp: the step inside the group differs: {row}")
+    return row
+
+
 def _tensors(sd) -> list:
     """Every tensor of a nested state dict, in a fixed order."""
     if isinstance(sd, torch.Tensor):
@@ -1751,12 +2336,15 @@ def main(argv=None) -> int:
     device = torch.device("cpu" if rehearsal else "cuda:0")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    marks = [("start", time.time())]
+    mark = lambda name: marks.append((name, time.time()))
     card = card_phase(device)
     emit({"phase": "card", **card})
     build_row = {}
     if not rehearsal:
         build_row = build_phase()
         emit({"phase": "build", **build_row})
+    mark("card+build")
     shapes = [(48, 79872), (24, 159744), (48, 79872 - 77)] if not rehearsal else [(6, 700)]
     checks = check_phase(device, shapes, rehearsal)
     checks += check_variants_phase(device, shapes, rehearsal)
@@ -1774,6 +2362,7 @@ def main(argv=None) -> int:
                                           ((2, 3, 5, 33), False, "tc_elementwise")])
     flash_checks = check_flash_phase(device, flash_cases)
     act_checks = check_act_phase(device, shapes, rehearsal)
+    mark("check")
     times, k2_times, flash_time, act_times = {}, {}, {}, []
     if not rehearsal:
         times = time_phase(device, shapes[:2], card)
@@ -1781,21 +2370,39 @@ def main(argv=None) -> int:
         flash_time = time_flash_phase(device, (16, 8, 467, 72), card)
         act_times = time_act_phase(device, shapes[:2], card)
         act_forms_phase(device, card)
+    mark("time")
     mods = build_modules(device, full=not rehearsal)
     gen_row = generate_phase(device, mods, full=not rehearsal, card=card)
     knob_phase(device, mods, full=not rehearsal)
+    mark("generate+knob")
     teacher_check_phase(device, full=not rehearsal)
     teacher_row = teacher_phase(device, mods, full=not rehearsal, card=card)
+    mark("teacher")
     prewarm_row = prewarm_phase(device, mods, full=not rehearsal, card=card)
     fold_phase(device, mods, full=not rehearsal, card=card)
+    mark("prewarm+fold")
     train_phase(device, mods, full=not rehearsal, card=card, kind="distill")
     train_phase(device, mods, full=not rehearsal, card=card, kind="teacher_train")
+    mark("distill+teacher_train")
+    ddp_phase(device, mods, full=not rehearsal, card=card)
+    mark("ddp")
     del mods
     int8_phase(device, full=not rehearsal, card=card)
+    mark("int8")
     interior = interior_phase(device, shapes[:2], card, rehearsal)
+    mark("interior")
     with tempfile.TemporaryDirectory() as tmp:
         vocode_phase(device, full=not rehearsal, card=card, tmp=tmp)
     roundtrip_phase(device, full=not rehearsal, card=card)
+    mark("vocode+roundtrip")
+    train_vae_phase(device, full=not rehearsal, card=card)
+    mark("train_vae")
+    train_cli_phase(device, full=not rehearsal, card=card)
+    mark("train_cli")
+    train_vocoder_phase(device, full=not rehearsal, card=card)
+    mark("train_vocoder")
+    emit({"phase": "seconds", "total": marks[-1][1] - marks[0][1],
+          "by_phase": {n: t - marks[i][1] for i, (n, t) in enumerate(marks[1:])}})
     line = kernels_line(checks, k2_checks, flash_checks, times, k2_times, flash_time, gen_row,
                         teacher_row, act_checks, act_times, interior, build_row)
     line["kernels"][0]["launches_per_captured_replay"] = prewarm_row.get(

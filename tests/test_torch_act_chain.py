@@ -23,6 +23,7 @@ import torch
 from audiolcm_torch.nn import act_chain as K
 from audiolcm_torch.nn.amp_stage import SMEM_BYTES
 from audiolcm_torch.tools import profile_stage_interior as PT
+from torch_threads import one_torch_thread  # noqa: F401  (autouse; tests/ is on sys.path)
 
 try:
     import jax

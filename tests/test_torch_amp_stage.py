@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from audiolcm_torch.nn import amp_stage as A
+from torch_threads import one_torch_thread  # noqa: F401  (autouse; tests/ is on sys.path)
 
 try:
     import jax

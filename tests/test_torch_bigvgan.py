@@ -1,7 +1,8 @@
 """Port parity: the full-width BigVGAN (shipped 16 kHz config) against
-audiolcm_tpu.models.bigvgan on a (1, 16, 80) mel, f32 CPU, with the last
-stage (C=24) through the fused AMP stage on both sides (JAX's Pallas kernel
-in interpret mode). Mirrors test_pallas_amp_stage.py:206-225: JAX init
+audiolcm_tpu.models.bigvgan on a (1, 16, 80) mel, f32 CPU. One JAX golden
+serves every case: JAX at pallas_stage_max_channels=96, which on this mel
+fuses the C=96, 48 and 24 stages (its Pallas kernel in interpret mode) and
+so holds the port's fused stage (C=24 at knob 24) and its unfused one. Mirrors test_pallas_amp_stage.py:206-225: JAX init
 weights' scale, non-zero biases and snake parameters, all from a numpy
 seed; atol 2e-5. The fused-stage knob above C=64 follows JAX: JAX fuses
 every stage whose length admits a tile, the port every stage whose route
@@ -20,13 +21,14 @@ from audiolcm_torch.models.bigvgan import BigVGANConfig as TConfig
 from audiolcm_torch.nn import amp_stage
 from audiolcm_tpu.models.bigvgan import BigVGAN as JaxBigVGAN
 from audiolcm_tpu.models.bigvgan import BigVGANConfig as JConfig
+from torch_threads import one_torch_thread  # noqa: F401  (autouse; tests/ is on sys.path)
 
 
 @pytest.fixture(scope="module")
 def vocoder_case():
     rng = np.random.default_rng(11)
     mel = (rng.standard_normal((1, 16, 80)) * 0.3).astype(np.float32)
-    jmodel = JaxBigVGAN(JConfig(), pallas_stage_max_channels=24, pallas_interpret=True)
+    jmodel = JaxBigVGAN(JConfig(), pallas_stage_max_channels=96, pallas_interpret=True)
     shapes = jax.eval_shape(
         lambda: JaxBigVGAN(JConfig()).init(jax.random.PRNGKey(0), jnp.asarray(mel)))["params"]
     # the JAX init's weight scale (normal 0.01); biases and snakes 0.1 * N
@@ -40,10 +42,9 @@ def vocoder_case():
 @pytest.fixture(scope="module")
 def knob96_golden(vocoder_case):
     """JAX at pallas_stage_max_channels=96: on this mel it fuses the C=96
-    stage (T=1024, tile 512), C=48 and C=24, in interpret mode."""
-    mel, params, _ = vocoder_case
-    jmodel = JaxBigVGAN(JConfig(), pallas_stage_max_channels=96, pallas_interpret=True)
-    return np.asarray(jax.jit(lambda p, m: jmodel.apply({"params": p}, m))(params, jnp.asarray(mel)))
+    stage (T=1024, tile 512), C=48 and C=24, in interpret mode
+    (`vocoder_case`'s golden)."""
+    return vocoder_case[2]
 
 
 def test_bigvgan_full_width_matches_jax_fused_stage(vocoder_case):

@@ -15,6 +15,7 @@ from audiolcm_tpu.convert import convert_dit
 from audiolcm_tpu.models.dit import ConcatDiT2MLP as JaxDiT
 from audiolcm_tpu.nn.attention import fuse_attention_params
 from tests.test_convert import _synthetic_dit_sd
+from torch_threads import one_torch_thread  # noqa: F401  (autouse; tests/ is on sys.path)
 
 IN_CH, CTX, HIDDEN, DEPTH, HEADS, MAX_LEN = 4, 16, 32, 2, 4, 64
 

@@ -14,6 +14,7 @@ import torch
 
 from audiolcm_torch.nn import flash_attention as F
 from audiolcm_torch.nn.attention import dot_product_attention
+from torch_threads import one_torch_thread  # noqa: F401  (autouse; tests/ is on sys.path)
 
 try:
     import jax.numpy as jnp

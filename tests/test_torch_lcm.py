@@ -14,6 +14,7 @@ from audiolcm_torch.diffusion import lcm as t_lcm
 from audiolcm_torch.diffusion.schedule import NoiseSchedule as TSchedule
 from audiolcm_tpu.diffusion import lcm as j_lcm
 from audiolcm_tpu.diffusion.schedule import NoiseSchedule as JSchedule
+from torch_threads import one_torch_thread  # noqa: F401  (autouse; tests/ is on sys.path)
 
 
 def test_timesteps_and_schedule():

@@ -16,6 +16,7 @@ from audiolcm_torch.data import melprep as t_prep
 from audiolcm_torch.dsp import mel as t_mel
 from audiolcm_tpu.data import melprep as j_prep
 from audiolcm_tpu.dsp import mel as j_mel
+from torch_threads import one_torch_thread  # noqa: F401  (autouse; tests/ is on sys.path)
 
 SMALL = dict(n_fft=64, win_size=48, hop_size=8, n_mels=8)
 

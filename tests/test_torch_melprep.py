@@ -18,6 +18,7 @@ from audiolcm_torch.data import buckets as t_buckets
 from audiolcm_torch.data import melprep as t_prep
 from audiolcm_tpu.data import buckets as j_buckets
 from audiolcm_tpu.data import melprep as j_prep
+from torch_threads import one_torch_thread  # noqa: F401  (autouse; tests/ is on sys.path)
 
 
 def _tsv(tmp_path):

@@ -23,6 +23,7 @@ from audiolcm_tpu.nn import embeddings as j_emb
 from audiolcm_tpu.nn import resample as j_res
 from audiolcm_tpu.nn import resample_cf as j_rcf
 from audiolcm_tpu.nn import snake as j_snake
+from torch_threads import one_torch_thread  # noqa: F401  (autouse; tests/ is on sys.path)
 
 ATOL = 2e-5
 

@@ -49,6 +49,7 @@ from audiolcm_tpu.models import vae1d as j_vae
 from tests.test_api import synthetic_ckpt  # noqa: F401  (module-scoped fixture)
 from tests.test_convert import _synthetic_bigvgan_sd, _synthetic_dit_sd, _synthetic_vae_sd
 from tests.test_torch_text import random_params
+from torch_threads import one_torch_thread  # noqa: F401  (autouse; tests/ is on sys.path)
 
 REPO = Path(__file__).resolve().parents[1]
 ATOL = 1e-4

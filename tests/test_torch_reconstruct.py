@@ -31,6 +31,7 @@ from audiolcm_tpu.models import vae1d as j_vae
 from audiolcm_tpu.models.bigvgan import BigVGANConfig
 from tests.test_convert import _synthetic_bigvgan_sd, _synthetic_vae_sd
 from tests.test_infer_cli import _config_with_dataset, _write_tiny_tsv
+from torch_threads import one_torch_thread  # noqa: F401  (autouse; tests/ is on sys.path)
 
 FIRST_STAGE = {"target": "ldm.models.autoencoder1d.AutoencoderKL", "params": {
     "embed_dim": 4, "ddconfig": {"double_z": True, "in_channels": 8, "out_ch": 8,

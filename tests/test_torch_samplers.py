@@ -27,6 +27,7 @@ from audiolcm_torch.diffusion.schedule import NoiseSchedule as TSchedule
 from audiolcm_tpu.diffusion import ddim as j_ddim
 from audiolcm_tpu.diffusion import plms as j_plms
 from audiolcm_tpu.diffusion.schedule import NoiseSchedule as JSchedule
+from torch_threads import one_torch_thread  # noqa: F401  (autouse; tests/ is on sys.path)
 
 SHAPE = (2, 6, 3)  # (B, T, C)
 CTX = 5

@@ -33,6 +33,7 @@ from audiolcm_tpu.data.buckets import DEFAULT_MEL_BUCKETS as J_BUCKETS
 from audiolcm_tpu.models import bigvgan as j_voc
 from audiolcm_tpu.nn import fold as j_fold
 from audiolcm_tpu.nn import int8_conv as j_int8
+from torch_threads import one_torch_thread  # noqa: F401  (autouse; tests/ is on sys.path)
 
 # the JAX fold test's vocoder (tests/test_bigvgan_fold.py): C=16 then C=8
 FOLD_CFG = dict(num_mels=8, upsample_rates=(4, 2), upsample_kernel_sizes=(8, 4),

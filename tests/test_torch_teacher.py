@@ -43,6 +43,7 @@ from tests.test_api import synthetic_ckpt  # noqa: F401  (module-scoped fixture)
 from tests.test_infer_cli import _config_with_dataset, _write_tiny_tsv
 from tests.test_torch_pipeline import BERT, DIT, T5, VAE, VOC, StubTokenizers
 from tests.test_torch_text import random_params
+from torch_threads import one_torch_thread  # noqa: F401  (autouse; tests/ is on sys.path)
 
 ATOL = 1e-4
 LATENT = 8

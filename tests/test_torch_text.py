@@ -16,6 +16,7 @@ from audiolcm_torch.models import clap_text as t_clap
 from audiolcm_torch.models import t5_encoder as t_t5
 from audiolcm_tpu.models import clap_text as j_clap
 from audiolcm_tpu.models import t5_encoder as j_t5
+from torch_threads import one_torch_thread  # noqa: F401  (autouse; tests/ is on sys.path)
 
 BERT = dict(vocab_size=30, hidden_size=16, num_layers=2, num_heads=2, intermediate_size=32,
             max_position_embeddings=16)

@@ -49,6 +49,7 @@ from audiolcm_tpu.train import lcm_distill as j_lcm
 from audiolcm_tpu.train import lr_schedules as j_sched
 from audiolcm_tpu.train import teacher as j_teacher
 from tests.test_convert import _synthetic_dit_sd
+from torch_threads import one_torch_thread  # noqa: F401  (autouse; tests/ is on sys.path)
 
 IN_CH, CTX, HIDDEN, DEPTH, HEADS, MAX_LEN = 4, 8, 32, 1, 4, 64
 B, T, LC = 2, 8, 2  # batch, latent frames, tokens per context half

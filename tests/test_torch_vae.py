@@ -18,6 +18,7 @@ from audiolcm_torch.models.vae1d import VAEConfig as TVAEConfig
 from audiolcm_tpu.models.vae1d import AutoencoderKL1D as JaxVAE
 from audiolcm_tpu.models.vae1d import VAEConfig as JVAEConfig
 from tests.test_torch_text import random_params
+from torch_threads import one_torch_thread  # noqa: F401  (autouse; tests/ is on sys.path)
 
 CFG = dict(in_channels=8, out_ch=8, ch=32, ch_mult=(1, 2), num_res_blocks=1,
            attn_layers=(0, 1), down_layers=(0,), kernel_size=5, z_channels=4, embed_dim=4)

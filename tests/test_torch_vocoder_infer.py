@@ -20,6 +20,7 @@ from scipy.io import wavfile
 from audiolcm_torch.cli import vocoder_infer as t_cli
 from audiolcm_tpu.cli import vocoder_infer as j_cli
 from tests.test_vocoder_infer_cli import VOC_ARGS, voc_dir  # noqa: F401  (fixture)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse; tests/ is on sys.path)
 
 
 def _run_both(args, tmp_path):
