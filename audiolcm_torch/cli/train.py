@@ -12,10 +12,11 @@ with metrics.jsonl and checkpoints/, resume from a checkpoint (-r):
   ldm.models.diffusion.lcm_audio.LCM_audio              -> LCM distillation
   ldm.models.diffusion.ddpm_audio.LatentDiffusion_audio -> teacher LDM
   ldm.models.autoencoder1d.AutoencoderKL                -> VAE GAN
-The VAE loss variants (lossconfig.target contperceptual_multiw / _dis /
-_mask, vqperceptual) are not ported yet and raise ValueError naming the
-target. Under torchrun each process trains on its card with its shard of
-the batches (`parallel/mesh.py`); rank 0 writes the checkpoints and
+and for the VAE the loss by lossconfig.target: contperceptual (the shipped
+loss, `train/vae_gan.py`), or the variants contperceptual_multiw / _dis /
+_mask and vqperceptual (`train/vae_losses_extra.py`). Under torchrun each
+process trains on its card with its shard of the batches
+(`parallel/mesh.py`); rank 0 writes the checkpoints and
 metrics.jsonl, the other ranks their metrics under rank<r>/. Runs on
 --device, the card unless told otherwise; the DiT is built with einsum
 attention and every module in f32.
@@ -242,10 +243,8 @@ def run_vae_training(cfg, args, logdir, ndev, batch_size, device):
     loss_target = lossconfig.get("target", "losses_audio.contperceptual.x")
     loss_module = next((seg for seg in loss_target.split(".") if "perceptual" in seg), "")
     if loss_module in VARIANT_LOSSES:
-        raise ValueError(
-            f"lossconfig.target {loss_target!r} (the {VARIANT_LOSSES[loss_module]!r} VAE loss "
-            "variant) is not ported to audiolcm_torch yet; train it with "
-            "audiolcm_tpu.cli.train, or use losses_audio.contperceptual.LPAPSWithDiscriminator")
+        return run_vae_variant_training(cfg, args, logdir, ndev, batch_size, device,
+                                        VARIANT_LOSSES[loss_module], loss_params)
     if loss_module != "contperceptual":
         raise ValueError(f"unknown lossconfig.target {loss_target!r}; expected one of "
                          "contperceptual[_multiw|_dis|_mask] or vqperceptual")
@@ -277,6 +276,68 @@ def run_vae_training(cfg, args, logdir, ndev, batch_size, device):
                        _make_val_fn(step_fn, lambda: val_loader(0), device))
     # AudioLogger (main.py:452-530): a fixed val batch's inputs once and its
     # reconstructions at every trigger, as .npy (and TensorBoard figures)
+    trainer.sample_logger = _make_vae_sample_logger(trainer, val_loader(0), device)
+    trainer.fit(loader, num_epochs=args.max_epochs,
+                generator=torch.Generator(device).manual_seed(args.seed))
+
+
+def run_vae_variant_training(cfg, args, logdir, ndev, batch_size, device, variant, loss_params):
+    """The VAE GAN with a loss variant (contperceptual_{multiw,dis,mask}.py,
+    vqperceptual.py), as the JAX CLI builds it: the PatchGAN
+    (disc_hidden_size 64, disc_num_layers 3) for dis / mask / vq, the
+    multi-window tower (time_lengths [16, 32, 64] "bn" for multiw, [32, 64,
+    128] "in" for dis; reduction "stack") for multiw / dis, both in eval
+    mode with their initial statistics; hinge loss, disc_weight and
+    disc_factor 1, kl_weight 1 unless the config says otherwise; Adam at
+    the scaled learning rate. No perceptual term: the JAX CLI passes no
+    perceptual_fn, so LPAPS stays off even when perceptual_weight is set.
+    One draw of the posterior noise and the window starts per training
+    step serves both steps."""
+    from audiolcm_torch import config as cfg_mod
+    from audiolcm_torch.models.discriminators import NLayerDiscriminator2D
+    from audiolcm_torch.models.multi_window_disc import MultiWindowDiscriminatorWrapper
+    from audiolcm_torch.train.loop import scale_learning_rate
+    from audiolcm_torch.train.vae_losses_extra import (
+        VariantConfig,
+        init_variant_state,
+        make_variant_gan_steps,
+    )
+
+    vcfg = VariantConfig(
+        variant=variant, disc_start=loss_params.get("disc_start", 80001),
+        kl_weight=loss_params.get("kl_weight", 1.0),
+        codebook_weight=loss_params.get("codebook_weight", 1.0),
+        disc_weight=loss_params.get("disc_weight", 1.0),
+        disc_factor=loss_params.get("disc_factor", 1.0),
+        disc_loss=loss_params.get("disc_loss", "hinge"),
+        pad_value=loss_params.get("pad_value", -1.0),
+        learning_rate=scale_learning_rate(cfg["model"].get("base_learning_rate", 4.5e-6),
+                                          batch_size, ndev))
+    dp = _data_params(cfg)
+    mel_num, spec_len = dp.get("mel_num", 80), dp.get("spec_len", 624)
+    with _seeded(args.seed):
+        vae = cfg_mod.build_from_target(cfg["model"]).to(device)
+        discs = {}
+        if variant in ("dis", "mask", "vq"):
+            discs["patch"] = NLayerDiscriminator2D(1, ndf=loss_params.get("disc_hidden_size", 64),
+                                                   n_layers=loss_params.get("disc_num_layers", 3))
+        if variant in ("multiw", "dis"):
+            discs["multi"] = MultiWindowDiscriminatorWrapper(
+                time_lengths=loss_params.get("time_lengths", [16, 32, 64] if variant == "multiw"
+                                             else [32, 64, 128]),
+                freq_length=mel_num, norm_type="in" if variant == "dis" else "bn",
+                reduction="stack")
+    state = init_variant_state(vae, {k: d.to(device) for k, d in discs.items()}, vcfg)
+    _, _, variant_step = make_variant_gan_steps(vcfg)
+
+    def step_fn(state, batch, generator):
+        mel = torch.from_numpy(batch["mel"].transpose(0, 2, 1).copy()).to(device)
+        return variant_step(state, mel, generator)
+
+    loader = _build_tile_loader(cfg, batch_size, spec_len)
+    val_loader = _build_tile_loader(cfg, batch_size, spec_len, split="valid")
+    trainer = _trainer(step_fn, state, logdir, args,
+                       _make_val_fn(step_fn, lambda: val_loader(0), device))
     trainer.sample_logger = _make_vae_sample_logger(trainer, val_loader(0), device)
     trainer.fit(loader, num_epochs=args.max_epochs,
                 generator=torch.Generator(device).manual_seed(args.seed))

@@ -413,3 +413,105 @@ def mrd_from_jax(params: dict, resolutions=((1024, 120, 600), (2048, 240, 1200),
     for i, res in enumerate(resolutions):
         _subdisc(params[f"r{res[0]}"], f"discriminators.{i}", out)
     return out
+
+
+def _adv_rows(kernel: np.ndarray, hidden: int, freq_length: int, to_jax: bool) -> np.ndarray:
+    """The multi-window head's input order: JAX flattens (T', F', C), the
+    reference (C, T', F'); with reduction "none" T' is 1."""
+    fp = (freq_length + 7) // 8
+    tp = kernel.size // (fp * hidden)
+    if to_jax:
+        return kernel.reshape(hidden, tp, fp).transpose(1, 2, 0).reshape(-1, 1)
+    return kernel.reshape(tp, fp, hidden).transpose(2, 0, 1).reshape(1, -1)
+
+
+def multi_window_from_jax(params: dict, batch_stats: Optional[dict] = None,
+                          time_lengths=(32, 64, 128), freq_length: int = 80) -> SD:
+    """MultiWindowDiscriminatorWrapper: the JAX params and batch_stats ->
+    `{discriminator,cond_disc}.conv_layers.<i>.model.<j>.{0,3}.*`,
+    `.adv_layer.*` (rows permuted to the reference's flatten order) and
+    `cond_disc.{mel,cond}_proj_layers.<i>.*`. "sn" convs: kernel ->
+    weight_orig, flax's u and sigma -> weight_u, weight_sigma. A window
+    JAX dropped at init (longer than its mel) has no entry."""
+    out: SD = {}
+    for tower, p in params.items():
+        stats = (batch_stats or {}).get(tower, {})
+        for i, win in enumerate(time_lengths):
+            for proj in ("mel_proj", "cond_proj"):
+                if f"{proj}_{i}" in p:
+                    _dense(p[f"{proj}_{i}"], f"{tower}.{proj}_layers.{i}", out)
+            if f"win_{win}" not in p:
+                continue
+            w, st, name = p[f"win_{win}"], stats.get(f"win_{win}", {}), f"{tower}.conv_layers.{i}"
+            hidden = np.asarray(w["conv_0"]["kernel"]).shape[-1]
+            for j in range(3):
+                conv = f"{name}.model.{j}.0"
+                _conv_any(w[f"conv_{j}"], conv, out)
+                if f"SpectralNorm_{j}" in st:
+                    sn = st[f"SpectralNorm_{j}"]
+                    out[f"{conv}.weight_orig"] = out.pop(f"{conv}.weight")
+                    out[f"{conv}.weight_u"] = _t(sn[f"conv_{j}/kernel/u"]).reshape(-1)
+                    out[f"{conv}.weight_sigma"] = _t(sn[f"conv_{j}/kernel/sigma"]).reshape(())
+                for norm in (f"bn_{j}", f"in_{j}"):
+                    if norm in w:
+                        _norm(w[norm], f"{name}.model.{j}.3", out)
+                if f"bn_{j}" in st:
+                    out[f"{name}.model.{j}.3.running_mean"] = _t(st[f"bn_{j}"]["mean"])
+                    out[f"{name}.model.{j}.3.running_var"] = _t(st[f"bn_{j}"]["var"])
+                    out[f"{name}.model.{j}.3.num_batches_tracked"] = torch.tensor(0)
+            adv = w["adv_layer"]
+            out[f"{name}.adv_layer.weight"] = _t(_adv_rows(
+                np.asarray(adv["kernel"], np.float32), hidden, freq_length, to_jax=False))
+            out[f"{name}.adv_layer.bias"] = _t(adv["bias"])
+    return out
+
+
+def multi_window_to_jax(sd: dict, time_lengths=(32, 64, 128), freq_length: int = 80) -> tuple:
+    """The inverse of multi_window_from_jax: a reference-layout state dict
+    -> (params, batch_stats) of JAX's MultiWindowDiscriminatorWrapper,
+    every window of time_lengths present in `sd`."""
+    a = lambda k: np.asarray(torch.as_tensor(sd[k]).detach().cpu().float().numpy())
+    kernel2d = lambda w: w.transpose(2, 3, 1, 0)
+    params: dict = {}
+    stats: dict = {}
+    for tower in ("discriminator", "cond_disc"):
+        if not any(k.startswith(tower + ".") for k in sd):
+            continue
+        p, st = params.setdefault(tower, {}), {}
+        for i, win in enumerate(time_lengths):
+            for proj in ("mel_proj", "cond_proj"):
+                key = f"{tower}.{proj}_layers.{i}"
+                if f"{key}.weight" in sd:
+                    p[f"{proj}_{i}"] = {"kernel": a(f"{key}.weight").T, "bias": a(f"{key}.bias")}
+            name = f"{tower}.conv_layers.{i}"
+            if f"{name}.adv_layer.weight" not in sd:
+                continue
+            w, wst = {}, {}
+            for j in range(3):
+                conv = f"{name}.model.{j}.0"
+                if f"{conv}.weight_orig" in sd:
+                    w[f"conv_{j}"] = {"kernel": kernel2d(a(f"{conv}.weight_orig")),
+                                      "bias": a(f"{conv}.bias")}
+                    wst[f"SpectralNorm_{j}"] = {
+                        f"conv_{j}/kernel/u": a(f"{conv}.weight_u")[None, :],
+                        f"conv_{j}/kernel/sigma": a(f"{conv}.weight_sigma").reshape(())}
+                else:
+                    w[f"conv_{j}"] = {"kernel": kernel2d(a(f"{conv}.weight")),
+                                      "bias": a(f"{conv}.bias")}
+                norm = f"{name}.model.{j}.3"
+                if f"{norm}.running_mean" in sd:
+                    w[f"bn_{j}"] = {"scale": a(f"{norm}.weight"), "bias": a(f"{norm}.bias")}
+                    wst[f"bn_{j}"] = {"mean": a(f"{norm}.running_mean"),
+                                      "var": a(f"{norm}.running_var")}
+                elif f"{norm}.weight" in sd:
+                    w[f"in_{j}"] = {"scale": a(f"{norm}.weight"), "bias": a(f"{norm}.bias")}
+            hidden = w["conv_0"]["kernel"].shape[-1]
+            w["adv_layer"] = {"kernel": _adv_rows(a(f"{name}.adv_layer.weight"), hidden,
+                                                  freq_length, to_jax=True),
+                              "bias": a(f"{name}.adv_layer.bias")}
+            p[f"win_{win}"] = w
+            if wst:
+                st[f"win_{win}"] = wst
+        if st:
+            stats[tower] = st
+    return params, stats

@@ -67,6 +67,16 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                 CLI on configs/teacher.yaml and configs/audiolcm.yaml with
                 fresh parts and stub tokenizers), train_vocoder (the vocoder
                 GAN at batch 2 card vs CPU, 5 steps at batch 32)
+ 12. variants — the VAE loss variants multiw, dis, mask and vq at
+                configs/autoencoder1d.yaml's widths (train_vae_variants:
+                one step card vs CPU, ms per step at batch 4, share of the
+                f32 bound, peak GB), one CLI epoch of contperceptual_dis
+                (train_vae_variants_cli); 0 K1 / K3 launches
+ 13. eval     — the scorers at full width, each card vs CPU (eval: LPAPS,
+                MR-STFT, VGGish + FAD, the CLAP score of 60 clips), and
+                cli.eval_acceptance end to end on a full-width synthetic
+                checkpoint with random CLAP and VGGish files (eval_cli);
+                0 K1 / K3 launches
 then the seconds of each phase, the kernels line and, last, the device
 line.
 """
@@ -1662,13 +1672,15 @@ def train_phase(device, mods, full: bool, card: dict, kind: str) -> dict:
 
 
 def training_counts_zero(kind: str) -> dict:
-    """The launch counts since reset_counts(); a trainer runs BigVGAN unfused
-    and the DiT on einsum attention, so K1 and K3 must not have launched."""
+    """The launch counts since reset_counts(); a trainer (and the eval
+    phases: the scorers, and the acceptance generate at stage knob 0) runs
+    BigVGAN unfused and the DiT on einsum attention, so K1 and K3 must not
+    have launched."""
     counts = read_counts()
     k1_k3 = {k: counts[k] for k in ("amp_stage", "amp_stage_mma", "flash_attention",
                                     "flash_attention_tc")}
     if any(k1_k3.values()):
-        raise AssertionError(f"{kind}: K1/K3 launched in a training phase: {k1_k3}")
+        raise AssertionError(f"{kind}: K1/K3 launched in a phase that runs none: {k1_k3}")
     return k1_k3
 
 
@@ -2234,6 +2246,520 @@ def ddp_phase(device, mods, full: bool, card: dict) -> dict:
     return row
 
 
+VARIANT_TARGETS = {"multiw": "contperceptual_multiw", "dis": "contperceptual_dis",
+                   "mask": "contperceptual_mask", "vq": "vqperceptual"}
+# f32 loss-variant step, card vs CPU: |a - b| <= ATOL + RTOL |b| per loss, the
+# CPU tests' bar (the adversarial terms are logit means near 0, where a
+# relative bar alone reads f32 rounding of O(1) logits: a mean of 0.0038
+# moved 2.5e-7 between the card and the CPU)
+VARIANT_LOSS_RTOL = VARIANT_LOSS_ATOL = 1e-5
+# eval scorers, card vs CPU: embeddings within this fraction of their largest
+# element; the LPAPS distance, MR-STFT, FAD and the CLAP score relative
+EVAL_RTOL = 1e-4
+
+
+def variant_towers(variant: str, cfg: dict):
+    """The discriminators `cli.train.run_vae_variant_training` builds for the
+    variant: the PatchGAN at the config's disc widths for dis / mask / vq,
+    the multi-window tower (hidden 128; windows 16-64 "bn" for multiw,
+    32-128 "in" for dis; reduction "stack") for multiw / dis."""
+    from audiolcm_torch.models.discriminators import NLayerDiscriminator2D
+    from audiolcm_torch.models.multi_window_disc import MultiWindowDiscriminatorWrapper
+
+    lp = cfg["model"]["params"]["lossconfig"]["params"]
+    towers = {}
+    if variant in ("dis", "mask", "vq"):
+        towers["patch"] = NLayerDiscriminator2D(1, lp.get("disc_hidden_size", 64),
+                                                lp.get("disc_num_layers", 3))
+    if variant in ("multiw", "dis"):
+        towers["multi"] = MultiWindowDiscriminatorWrapper(
+            [16, 32, 64] if variant == "multiw" else [32, 64, 128],
+            cfg["data"]["params"]["mel_num"], norm_type="in" if variant == "dis" else "bn",
+            reduction="stack")
+    return towers
+
+
+def train_vae_variants_phase(device, full: bool, card: dict) -> list:
+    """The VAE loss variants multiw, dis, mask and vq at configs/
+    autoencoder1d.yaml's widths (VAE ch 384, mel 80 x 624, the PatchGAN ndf
+    64 with 3 layers, the multi-window tower hidden 128), disc_start 0 so
+    that every tower's adaptive weight is live; f32, TF32 off. Mels in
+    [-1, 1], the second clip's last 200 frames at the mask variant's
+    pad_value -1. Per variant:
+    1. one generator + discriminator step on the card and on the CPU at
+       batch 2 from the same weights (`init_random_`), posterior noise and
+       window starts, SGD at VAE_SGD_LR: the generator step's losses
+       within VARIANT_LOSS_ATOL + VARIANT_LOSS_RTOL x |loss| in f32 (its
+       adaptive weights, ratios of gradient norms, at TRAIN_RTOL), every
+       loss and logit mean within it in f64, the f64 updates
+       (`updates_agree`) at TRAIN_RTOL. The discriminator step's f32
+       losses (printed) read the f32-updated VAE: with the adaptive weight
+       clipped at 1e4 the f32 update is ~1e-4 from f64 on either device,
+       and the dis variant's multi-window loss moved 3.3e-4 between them,
+       so those are held in f64, as train_vae holds the update;
+    2. ms per step at the config's batch 4 with the Adam pair (CUDA
+       events, median of 5), peak GB, and the share of the f32 bound
+       (`step_flop`'s FLOP of one step over the CUDA cores' f32 rate);
+    3. 0 K1 and K3 launches."""
+    import copy
+
+    from audiolcm_torch import config as cfg_mod
+    from audiolcm_torch.models.multi_window_disc import draw_starts
+    from audiolcm_torch.train import vae_losses_extra as V
+
+    rows = []
+    cpu = torch.device("cpu")
+    for variant in VARIANT_TARGETS:
+        t0 = time.time()
+        reset_counts()
+        cfg = vae_train_config(full, "unused")
+        dp = cfg["data"]["params"]
+        mel_num, frames, batch = dp["mel_num"], dp["spec_len"], dp["batch_size"]
+        torch.manual_seed(80)
+        vae = cfg_mod.build_from_target(cfg["model"])
+        towers = variant_towers(variant, cfg)
+        for i, m in enumerate([vae, *towers.values()]):
+            init_random_(m, torch.Generator().manual_seed(84 + i))
+        vcfg = V.VariantConfig(variant=variant, disc_start=0)
+        g = torch.Generator().manual_seed(81)
+
+        def mels(n):
+            mel = torch.rand(n, frames, mel_num, generator=g) * 2.0 - 1.0
+            mel[1, -frames // 3:] = vcfg.pad_value
+            return mel
+
+        mel = mels(2)
+        down = 2 ** len(vae.config.down_layers)
+        noise = torch.randn(2, frames // down, vae.config.embed_dim, generator=g)
+        starts = (draw_starts(len(towers["multi"].time_lengths), frames, g)
+                  if "multi" in towers else None)
+
+        def one_step(dev, dtype=torch.float32):
+            st = V.init_variant_state(
+                copy.deepcopy(vae).to(dev, dtype),
+                {k: copy.deepcopy(t).to(dev, dtype) for k, t in towers.items()}, vcfg,
+                optimizer=lambda p: torch.optim.SGD(p, lr=VAE_SGD_LR))
+            _, _, step = V.make_variant_gan_steps(vcfg)
+            st, m = step(st, mel.to(dev, dtype), noise=noise.to(dev, dtype), starts=starts)
+            params = {**{"vae." + k: v for k, v in st.vae.state_dict().items()},
+                      **{"discs." + k: v for k, v in st.discs.state_dict().items()
+                         if v.is_floating_point()}}
+            return {k: float(v) for k, v in m.items()}, {k: v.detach() for k, v in params.items()}
+
+        before = {**{"vae." + k: v.double() for k, v in vae.state_dict().items()},
+                  **{"discs." + k: v.double()
+                     for k, v in torch.nn.ModuleDict(towers).state_dict().items()
+                     if v.is_floating_point()}}
+        step_s = {}
+        for name, dev, dtype in (("card", device, torch.float32), ("cpu", cpu, torch.float32),
+                                 ("card_f64", device, torch.float64),
+                                 ("cpu_f64", cpu, torch.float64)):
+            t_s = time.time()
+            step_s[name] = (one_step(dev, dtype), time.time() - t_s)
+        (m_dev, a_dev), (m_cpu, _), (m_dev64, a_dev64), (m_64, a_64) = (
+            step_s[k][0] for k in ("card", "cpu", "card_f64", "cpu_f64"))
+        # per loss, the gap over its bar (<= 1 passes): in f32 the generator
+        # step's, which no update precedes; in f64 every metric. The
+        # adaptive weights are ratios of f32 gradient norms over the decoder's
+        # last conv: held at TRAIN_RTOL (the dis tower's moved 1.0e-5)
+        gen_keys = [k for k in m_cpu if not k.startswith(("train/disc_loss", "train/logits"))]
+        rtol_of = lambda k, dtype: (TRAIN_RTOL if "d_weight" in k and dtype == "f32"
+                                    else VARIANT_LOSS_RTOL)
+        gap = lambda a, b, keys, dt: max(abs(a[k] - b[k]) / (VARIANT_LOSS_ATOL + rtol_of(k, dt)
+                                                             * abs(b[k])) for k in keys)
+        same = updates_agree(a_dev64, a_64, before)
+        row = {"variant": variant, "target": VARIANT_TARGETS[variant], "batch_check": 2,
+               "frames": frames, "mel": mel_num, "towers": sorted(towers), "dtype": "float32",
+               "tf32": False, "disc_start": 0, "losses_card": m_dev,
+               "loss_abs_diff": {k: abs(m_dev[k] - m_cpu[k]) for k in m_cpu},
+               "loss_gap_over_bar": gap(m_dev, m_cpu, gen_keys, "f32"),
+               "loss_f64_gap_over_bar": gap(m_dev64, m_64, list(m_64), "f64"),
+               "rtol": VARIANT_LOSS_RTOL, "atol": VARIANT_LOSS_ATOL, "update_rtol": TRAIN_RTOL,
+               "update_f64_card_vs_cpu": same,
+               "update_f32_card_vs_f64": updates_agree(a_dev, a_64, before),
+               "check_step_s": {k: v[1] for k, v in step_s.items()}}
+        live = all(v > 0 for k, v in m_dev.items() if "d_weight" in k)
+        if not (row["loss_gap_over_bar"] <= 1.0 and row["loss_f64_gap_over_bar"] <= 1.0
+                and same["update_rel_l2_diff"] <= TRAIN_RTOL
+                and same["update_max_diff_over_max_update"] <= TRAIN_RTOL and live):
+            emit({"phase": "train_vae_variants", **row})
+            raise AssertionError(f"train_vae_variants {variant}: card vs CPU step: {row}")
+        if device.type == "cuda":
+            st = V.init_variant_state(copy.deepcopy(vae).to(device),
+                                      {k: copy.deepcopy(t).to(device) for k, t in towers.items()},
+                                      vcfg)
+            _, _, step = V.make_variant_gan_steps(vcfg)
+            mel_b = mels(batch).to(device)
+            gen = torch.Generator(device).manual_seed(82)
+            run = lambda: step(st, mel_b, gen)
+            run()
+            flop = step_flop(run)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times = timed_steps(run, 5)
+            ms = sorted(times)[2]
+            row.update(batch=batch, ms_per_step=ms, ms_steps=times,
+                       peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                       tflop_per_step=flop / 1e12, f32_bound_ms=1e3 * flop / PEAK_F32,
+                       share_of_f32_bound=1e3 * flop / PEAK_F32 / ms, card=card["nvidia_smi"])
+            del st
+        row.update(launches=training_counts_zero(f"train_vae_variants {variant}"),
+                   seconds=time.time() - t0)
+        emit({"phase": "train_vae_variants", **row})
+        rows.append(row)
+    return rows
+
+
+def train_vae_variants_cli_phase(device, full: bool, card: dict) -> dict:
+    """`cli.train.main` for one epoch with lossconfig.target
+    contperceptual_dis (both towers) at configs/autoencoder1d.yaml's widths
+    on 100 + 8 x batch random mels (8 steps): metrics.jsonl with finite val
+    losses of both towers, a checkpoint at step 8 holding the VAE and both
+    towers, 0 K1 / K3 launches."""
+    import os
+
+    import yaml
+
+    from audiolcm_torch.cli import train as cli
+
+    t0 = time.time()
+    reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = vae_train_config(full, os.path.join(tmp, "data"))
+        cfg["model"]["params"]["lossconfig"]["target"] = (
+            "ldm.modules.losses_audio.contperceptual_dis.LPAPSWithDiscriminator")
+        dp = cfg["data"]["params"]
+        write_manifest(dp["spec_dir_path"], 100 + 8 * dp["batch_size"], dp["mel_num"],
+                       dp["spec_len"], seed=86)
+        path = os.path.join(tmp, "dis.yaml")
+        with open(path, "w") as f:
+            yaml.safe_dump(cfg, f)
+        logroot = os.path.join(tmp, "logs")
+        cli.main(["-b", path, "-t", "--max_epochs", "1", "-l", logroot, "--device", str(device)])
+        lines, ckpts = read_run(logroot)
+        (run,) = os.listdir(logroot)
+        sd = torch.load(os.path.join(logroot, run, "checkpoints", str(ckpts[-1]), "state.pt"),
+                        map_location="cpu", weights_only=True)
+    val = [x for x in lines if "val/nll_loss" in x][-1]
+    keys = ("val/nll_loss", "val/g_loss", "val/g_multi_loss", "val/d_weight_g",
+            "val/d_weight_g_multi", "val/disc_loss", "val/disc_loss_multi", "val/disc_loss_total")
+    row = {"target": cfg["model"]["params"]["lossconfig"]["target"], "batch": dp["batch_size"],
+           "steps": 8, "checkpoints": ckpts, "epoch_time_s": val["epoch_time_s"],
+           **{k: val.get(k) for k in keys},
+           "towers_in_checkpoint": sorted({k.split(".")[0] for k in sd["discs"]}),
+           "launches": training_counts_zero("train_vae_variants_cli"), "seconds": time.time() - t0}
+    emit({"phase": "train_vae_variants_cli", **row})
+    if not (ckpts == [8] and all(row[k] is not None and math.isfinite(row[k]) for k in keys)
+            and row["towers_in_checkpoint"] == ["multi", "patch"]):
+        raise AssertionError(f"train_vae_variants_cli: {row}")
+    return row
+
+
+def rel_to_scale(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over max |want|."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def eval_wavs(n: int, seconds: float, seed: int):
+    """n synthetic 16 kHz float32 clips: a few partials in noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(16000 * seconds)) / 16000
+    return [(0.2 * np.sin(2 * np.pi * rng.uniform(100, 2000) * t)
+             + 0.1 * np.sin(2 * np.pi * rng.uniform(100, 4000) * t)
+             + 0.05 * rng.standard_normal(t.size)).astype(np.float32) for _ in range(n)]
+
+
+class StubClapTokenizer:
+    """Deterministic (B, 77) ids in place of the CLAP's bert tokenizer."""
+
+    def __init__(self, *args, **kwargs):
+        pass
+
+    def __call__(self, captions):
+        return torch.stack([(torch.arange(77) * 7 + 3 * len(c)) % 997 for c in captions])
+
+
+def eval_phase(device, full: bool, card: dict) -> dict:
+    """The scorers at full widths on random weights, each against its CPU
+    run on the same inputs (EVAL_RTOL), f32 with TF32 off, ms by CUDA
+    events (median of 5 unless said): LPAPS on (4, 80, 624) mel pairs;
+    MR-STFT on 8 x 159 744 samples; VGGish on 8 ten-second clips (80
+    examples) and FAD from them against 8 other clips; the CLAP score of
+    one batch of 60 ten-second clips (Cnn14 + BERT-base + projections; the
+    host's resample and crop timed apart from the device's embeddings).
+    0 K1 / K3 launches. The rehearsal: 16 x 32 mels, 2 x 4000 samples, 2
+    one-second clips per VGGish set, 4 CLAP clips and a tiny BERT."""
+    import copy
+
+    import numpy as np
+
+    from audiolcm_torch.eval.clap_score import clap_score, prepare_clap_audio
+    from audiolcm_torch.eval.fad import embedding_statistics, frechet_distance
+    from audiolcm_torch.eval.mrstft import mrstft_loss
+    from audiolcm_torch.models.clap import CLAP
+    from audiolcm_torch.models.clap_text import BertConfig
+    from audiolcm_torch.models.lpaps import LPAPS
+    from audiolcm_torch.models.vggish import VGGish
+
+    t0 = time.time()
+    reset_counts()
+    cpu = torch.device("cpu")
+    on_card = device.type == "cuda"
+    row: dict = {}
+    fails = []
+
+    def both(model, fn):
+        """fn(model on a device, device) on the card and on the CPU."""
+        outs = []
+        for dev in (device, cpu):
+            m = copy.deepcopy(model).to(dev).eval().requires_grad_(False)
+            with torch.inference_mode():
+                outs.append(fn(m, dev))
+        return outs
+
+    def timed(fn, iters=5):
+        """The median of `iters` calls' CUDA-event ms, after one warm-up."""
+        if not on_card:
+            return "not measured"
+        with torch.inference_mode():
+            fn()
+            return sorted(timed_steps(fn, iters))[iters // 2]
+
+    # LPAPS
+    n_freq, frames = (80, 624) if full else (16, 32)
+    lpaps = LPAPS(n_freq)
+    init_random_(lpaps, torch.Generator().manual_seed(90))
+    g = torch.Generator().manual_seed(91)
+    x = torch.rand(4, 1, n_freq, frames, generator=g) * 2 - 1
+    y = (x + 0.1 * torch.randn(x.shape, generator=g)).clamp(-1, 1)
+    d_dev, d_cpu = both(lpaps, lambda m, dev: m(x.to(dev), y.to(dev)))
+    m_dev = copy.deepcopy(lpaps).to(device).eval()
+    xd, yd = x.to(device), y.to(device)
+    row["lpaps"] = {"shape": list(x.shape), "distance": d_dev.flatten().tolist(),
+                    "rel_diff": rel_to_scale(d_dev, d_cpu), "ms": timed(lambda: m_dev(xd, yd))}
+    # MR-STFT
+    b, n = (8, 159744) if full else (2, 4000)
+    w = 0.3 * torch.randn(b, n, generator=g)
+    w_hat = w + 0.05 * torch.randn(b, n, generator=g)
+    losses = [mrstft_loss(w.to(dev), w_hat.to(dev)) for dev in (device, cpu)]
+    wd, whd = w.to(device), w_hat.to(device)
+    row["mrstft"] = {"shape": [b, n], "loss": float(losses[0]),
+                     "rel_diff": rel_to_scale(losses[0], losses[1]),
+                     "ms": timed(lambda: mrstft_loss(wd, whd))}
+    # VGGish and FAD
+    n_clips, secs = (8, 10.0) if full else (2, 1.0)
+    vggish = VGGish()
+    init_random_(vggish, torch.Generator().manual_seed(92))
+    gen_w = torch.from_numpy(np.stack(eval_wavs(n_clips, secs, 93)))
+    bg_w = torch.from_numpy(np.stack(eval_wavs(n_clips, secs, 94)))
+    (e_dev, b_dev), (e_cpu, b_cpu) = both(
+        vggish, lambda m, dev: (m.embed_waveform(gen_w.to(dev)), m.embed_waveform(bg_w.to(dev))))
+    v_dev = copy.deepcopy(vggish).to(device).eval()
+    gd = gen_w.to(device)
+    fads = [frechet_distance(*embedding_statistics(bg.double().cpu().numpy()),
+                             *embedding_statistics(ge.double().cpu().numpy()))
+            for ge, bg in ((e_dev, b_dev), (e_cpu, b_cpu))]
+    row["vggish"] = {"clips": n_clips, "examples": e_dev.shape[0],
+                     "rel_diff": max(rel_to_scale(e_dev, e_cpu), rel_to_scale(b_dev, b_cpu)),
+                     "ms": timed(lambda: v_dev.embed_waveform(gd))}
+    row["fad"] = {"embedder": "vggish", "fad_card": fads[0], "fad_cpu": fads[1],
+                  "rel_diff": abs(fads[0] - fads[1]) / max(abs(fads[1]), 1e-30)}
+    # the CLAP score
+    n_clap = 60 if full else 4
+    bert = BertConfig() if full else BertConfig(vocab_size=1000, hidden_size=16, num_layers=1,
+                                                num_heads=2, intermediate_size=32,
+                                                max_position_embeddings=80)
+    clap = CLAP(bert)
+    init_random_(clap, torch.Generator().manual_seed(95))
+    wavs = eval_wavs(n_clap, 10.0 if full else 1.0, 96)
+    caps = [f"a sound with {i} parts" for i in range(n_clap)]
+    tok = StubClapTokenizer()
+    t_h = time.perf_counter()
+    batch = np.stack([prepare_clap_audio(wv) for wv in wavs])
+    host_ms = 1e3 * (time.perf_counter() - t_h)
+    scores, embs = [], []
+    for dev in (device, cpu):
+        m = copy.deepcopy(clap).to(dev).eval().requires_grad_(False)
+        seen = []  # one batch of n_clap: the embeddings clap_score scored
+
+        def text_fn(c, m=m, dev=dev):
+            seen.append(m.embed_text(tok(c).to(dev)))
+            return seen[-1]
+
+        def audio_fn(a, m=m, dev=dev):
+            seen.append(m.audio_encoder(torch.as_tensor(a, device=dev)))
+            return seen[-1]
+
+        with torch.inference_mode():
+            scores.append(clap_score(text_fn, audio_fn, caps, wavs))
+        embs.append(seen)
+        if dev == device:
+            ids, a_dev = tok(caps).to(device), torch.as_tensor(batch, device=device)
+            device_ms = timed(lambda: (m.embed_text(ids), m.audio_encoder(a_dev)), iters=3)
+    row["clap"] = {"clips": n_clap, "clip_s": 10.0 if full else 1.0, "score_card": scores[0],
+                   "score_cpu": scores[1],
+                   "rel_diff": abs(scores[0] - scores[1]) / max(abs(scores[1]), 1e-30),
+                   "text_emb_rel_diff": rel_to_scale(embs[0][0], embs[1][0]),
+                   "audio_emb_rel_diff": rel_to_scale(embs[0][1], embs[1][1]),
+                   "host_resample_ms": host_ms, "device_embed_ms": device_ms}
+    for name in ("lpaps", "mrstft", "vggish", "fad", "clap"):
+        diffs = [v for k, v in row[name].items() if k.endswith("rel_diff")]
+        if not all(d <= EVAL_RTOL for d in diffs):
+            fails.append(name)
+    row.update(rtol=EVAL_RTOL, launches=training_counts_zero("eval"),
+               card=card["nvidia_smi"], seconds=time.time() - t0)
+    emit({"phase": "eval", **row})
+    if fails:
+        raise AssertionError(f"eval: card vs CPU beyond {EVAL_RTOL}: {fails}")
+    return row
+
+
+def write_lcm_checkpoint(path: str, cfg_path: str, device) -> float:
+    """A reference-format LCM checkpoint at the config's widths from random
+    weights (`init_random_`, built on `device`): the student DiT under
+    unet.diffusion_model., the VAE, the CLAP-BERT tower with its projection
+    and the T5 encoder in their reference layouts, scale_factor 1. Returns
+    its size in GB."""
+    import os
+
+    from audiolcm_torch import config as cfg_mod
+
+    sys_cfg = cfg_mod.parse_diffusion_config(cfg_mod.load_yaml(cfg_path))
+    sd = {"scale_factor": torch.tensor(1.0)}
+    gen = torch.Generator(device).manual_seed(97)
+    for prefix, build in (("unet.diffusion_model.", sys_cfg.build_dit),
+                          ("first_stage_model.", sys_cfg.build_vae),
+                          ("cond_stage_model.caption_encoder.", sys_cfg.build_clap_text),
+                          ("cond_stage_model.t5_transformer.", sys_cfg.build_t5)):
+        with torch.device(device):
+            m = build()
+        init_random_(m, gen)
+        sd.update({prefix + k: v.cpu() for k, v in m.state_dict().items()})
+        del m
+    torch.save({"state_dict": sd}, path)
+    return os.path.getsize(path) / 1e9
+
+
+def eval_cli_phase(device, full: bool, card: dict) -> dict:
+    """`cli.eval_acceptance.main` end to end: a synthetic LCM checkpoint at
+    configs/audiolcm.yaml's widths (`write_lcm_checkpoint`) and the 16 kHz
+    vocoder directory (best_netG.pt + args.yml), a random CLAP file
+    (BERT-base + Cnn14) and a random torchvggish file, stub tokenizers,
+    the in-repo AudioCaps TSV with --limit 8 --batch_size 8 (the
+    pipeline's defaults: bf16 on the card, no fused stage), and a --gt_dir
+    of 8 synthetic 10 s wavs. The one JSON line must hold a finite
+    clap_score and fad (VGGish); the wall time split into generate and
+    scoring (and the files' writing apart); 0 K1 / K3 launches. The
+    rehearsal: the tiny YAML of `diffusion_train_config`, --W 32, 2 clips,
+    a tiny CLAP-BERT."""
+    import contextlib
+    import functools
+    import io
+    import os
+
+    import yaml
+    from scipy.io import wavfile
+
+    from audiolcm_torch import api
+    from audiolcm_torch import config as cfg_mod
+    from audiolcm_torch.cli import cal_clap_score, eval_acceptance
+    from audiolcm_torch.cli import txt2audio_for_lcm as t2a
+    from audiolcm_torch.models.clap import CLAP
+    from audiolcm_torch.models.clap_text import BertConfig
+    from audiolcm_torch.models.vggish import VGGish
+
+    t0 = time.time()
+    n = 8 if full else 2
+    saved = (api.Tokenizers, cal_clap_score.ClapTokenizer, cal_clap_score.build_clap_scorers,
+             t2a.main)
+    gen_s = []
+
+    def timed_generate(argv):
+        t = time.perf_counter()
+        saved[3](argv)
+        sync(device)
+        gen_s.append(time.perf_counter() - t)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        if full:
+            cfg_path = "configs/audiolcm.yaml"
+            bert = BertConfig()
+        else:
+            cfg_path = os.path.join(tmp, "tiny.yaml")
+            tiny = diffusion_train_config(False, "audiolcm", tmp, "")
+            with open(cfg_path, "w") as f:
+                yaml.safe_dump(tiny, f)
+            bert = BertConfig(vocab_size=1000, hidden_size=16, num_layers=1, num_heads=2,
+                              intermediate_size=32, max_position_embeddings=80)
+        ckpt = os.path.join(tmp, "lcm.ckpt")
+        ckpt_gb = write_lcm_checkpoint(ckpt, cfg_path, device)
+        voc_dir = os.path.join(tmp, "vocoder")
+        os.makedirs(voc_dir)
+        args = vocoder_args(full)
+        if not full:
+            args["num_mels"] = 16  # the tiny VAE's mel bins
+        voc = cfg_mod.build_vocoder_from_args(args)
+        init_random_(voc, torch.Generator().manual_seed(98))
+        torch.save({"generator": voc.state_dict()}, os.path.join(voc_dir, "best_netG.pt"))
+        with open(os.path.join(voc_dir, "args.yml"), "w") as f:
+            yaml.safe_dump(args, f)
+        clap = CLAP(bert)
+        init_random_(clap, torch.Generator().manual_seed(99))
+        clap_path = os.path.join(tmp, "clap.pth")
+        torch.save({"model": clap.state_dict()}, clap_path)
+        vgg = VGGish()
+        init_random_(vgg, torch.Generator().manual_seed(100))
+        vgg_path = os.path.join(tmp, "vggish.pth")
+        torch.save(vgg.state_dict(), vgg_path)
+        del clap, vgg, voc
+        gt = os.path.join(tmp, "gt")
+        os.makedirs(gt)
+        for i, wv in enumerate(eval_wavs(n, 10.0 if full else 1.0, 101)):
+            wavfile.write(os.path.join(gt, f"gt{i}.wav"), 16000, (wv * 32767).astype("int16"))
+        write_s = time.time() - t0
+        outdir = os.path.join(tmp, "acc")
+        argv = ["-b", cfg_path, "--ckpt", ckpt, "--vocoder-ckpt", voc_dir,
+                "--tsv", "audiocaps_test_16000_struct.tsv", "--outdir", outdir,
+                "--limit", str(n), "--batch_size", str(n), "--gt_dir", gt,
+                "--clap_weights", clap_path, "--vggish_ckpt", vgg_path, "--device", str(device)]
+        if not full:
+            argv += ["--W", "32"]  # 16 384 samples: one VGGish example per clip
+        reset_counts()
+        api.Tokenizers = StubTokenizers
+        cal_clap_score.ClapTokenizer = StubClapTokenizer
+        cal_clap_score.build_clap_scorers = functools.partial(saved[2], text_config=bert)
+        t2a.main = timed_generate
+        printed = io.StringIO()
+        try:
+            t1 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                out = eval_acceptance.main(argv)
+            sync(device)
+            wall_s = time.perf_counter() - t1
+        finally:
+            (api.Tokenizers, cal_clap_score.ClapTokenizer, cal_clap_score.build_clap_scorers,
+             t2a.main) = saved
+        lines = [x for x in printed.getvalue().splitlines() if x.startswith("{")]
+        with open(os.path.join(outdir, "acceptance.json")) as f:
+            written = json.load(f)
+    row = {"config": "configs/audiolcm.yaml" if full else "tiny", "checkpoint_gb": ckpt_gb,
+           "clips": n, "json_lines": len(lines), "acceptance": out,
+           "json_matches_file": written == out and len(lines) == 1 and json.loads(lines[0]) == out,
+           "files_write_s": write_s, "wall_s": wall_s, "generate_s": gen_s[0] if gen_s else None,
+           "scoring_s": wall_s - gen_s[0] if gen_s else None,
+           "launches": training_counts_zero("eval_cli"), "seconds": time.time() - t0,
+           "card": card["nvidia_smi"]}
+    emit({"phase": "eval_cli", **row})
+    finite = lambda v: v is not None and math.isfinite(v)
+    if not (row["json_matches_file"] and out["n_clips"] == n and finite(out["clap_score"])
+            and finite(out["fad"]) and out["fad_embedder"] == "vggish"):
+        raise AssertionError(f"eval_cli: {row}")
+    return row
+
+
 def _tensors(sd) -> list:
     """Every tensor of a nested state dict, in a fixed order."""
     if isinstance(sd, torch.Tensor):
@@ -2401,6 +2927,12 @@ def main(argv=None) -> int:
     mark("train_cli")
     train_vocoder_phase(device, full=not rehearsal, card=card)
     mark("train_vocoder")
+    train_vae_variants_phase(device, full=not rehearsal, card=card)
+    train_vae_variants_cli_phase(device, full=not rehearsal, card=card)
+    mark("train_vae_variants")
+    eval_phase(device, full=not rehearsal, card=card)
+    eval_cli_phase(device, full=not rehearsal, card=card)
+    mark("eval")
     emit({"phase": "seconds", "total": marks[-1][1] - marks[0][1],
           "by_phase": {n: t - marks[i][1] for i, (n, t) in enumerate(marks[1:])}})
     line = kernels_line(checks, k2_checks, flash_checks, times, k2_times, flash_time, gen_row,

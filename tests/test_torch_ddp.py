@@ -8,8 +8,8 @@ batch's t, noise and w from one seed and keep their rows). The VAE-GAN
 steps (gradients and the adaptive weight's gradients averaged over the
 ranks, the discriminator's BatchNorm statistics over the global batch)
 and the vocoder GAN's discriminator + generator steps agree with their
-single-process steps too. SGD at lr 1 throughout, so an
-update is the gradient; f32 sums over 2 + 2 rows against 4 rows round
+single-process steps too, as do those of the "dis" VAE loss variant.
+SGD at lr 1 throughout, so an update is the gradient; f32 sums over 2 + 2 rows against 4 rows round
 differently, so the bar is rtol 1e-5 / atol 1e-5 (updates of O(1)-O(10),
 the VAE's from an L1 sum); the two ranks agree exactly.
 """
@@ -36,6 +36,7 @@ def build() -> dict:
     from audiolcm_torch.models.bigvgan import BigVGAN, BigVGANConfig
     from audiolcm_torch.models.dit import ConcatDiT2MLP
     from audiolcm_torch.models.discriminators import NLayerDiscriminator2D
+    from audiolcm_torch.models.multi_window_disc import MultiWindowDiscriminatorWrapper
     from audiolcm_torch.models.vae1d import AutoencoderKL1D, VAEConfig
     from audiolcm_torch.models.vocoder_discriminators import (
         MultiPeriodDiscriminator,
@@ -44,14 +45,18 @@ def build() -> dict:
 
     torch.manual_seed(0)
     g = torch.Generator().manual_seed(1)
+    vae_cfg = VAEConfig(in_channels=16, out_ch=16, ch=32, ch_mult=(1, 2), num_res_blocks=1,
+                        attn_layers=(), z_channels=4, embed_dim=4)
     return {
         "dit": ConcatDiT2MLP(4, 16, 32, 2, 4, 64),
         "z": torch.randn(4, 16, 4, generator=g), "ctx": torch.randn(4, 6, 16, generator=g),
         "uc": torch.zeros(1, 6, 16),
-        "vae": AutoencoderKL1D(VAEConfig(in_channels=16, out_ch=16, ch=32, ch_mult=(1, 2),
-                                         num_res_blocks=1, attn_layers=(), z_channels=4,
-                                         embed_dim=4)),
+        "vae": AutoencoderKL1D(vae_cfg),
         "disc": NLayerDiscriminator2D(1, 8, 2),
+        "dis_vae": AutoencoderKL1D(vae_cfg),
+        "dis_discs": {"patch": NLayerDiscriminator2D(1, 8, 2),
+                      "multi": MultiWindowDiscriminatorWrapper((16, 32), 16, hidden_size=8,
+                                                               norm_type="in", reduction="stack")},
         "mel": torch.randn(4, 32, 16, generator=g),
         "vae_noise": torch.randn(4, 16, 4, generator=g),
         "gen": BigVGAN(BigVGANConfig(num_mels=8, upsample_rates=(4, 4),
@@ -70,7 +75,7 @@ def run_steps(m: dict, rows: slice) -> dict:
     from audiolcm_torch.dsp.mel import MelConfig, MelSpectrogram
     from audiolcm_torch.parallel import mesh
     from audiolcm_torch.train import lcm_distill as L
-    from audiolcm_torch.train import vae_gan, vocoder_gan
+    from audiolcm_torch.train import vae_gan, vae_losses_extra, vocoder_gan
 
     sgd = lambda p: torch.optim.SGD(p, lr=1.0)
     teacher = m["dit"]
@@ -91,6 +96,14 @@ def run_steps(m: dict, rows: slice) -> dict:
     vstate, vm = vae_gan_step(vstate, m["mel"][rows], noise=m["vae_noise"][rows])
     out.update(vae_gan={k: float(v) for k, v in vm.items()}, vae=vstate.vae.state_dict(),
                disc=vstate.disc.state_dict())
+
+    dcfg = vae_losses_extra.VariantConfig(variant="dis", disc_start=0)
+    dstate = vae_losses_extra.init_variant_state(m["dis_vae"], m["dis_discs"], dcfg, optimizer=sgd)
+    _, _, dis_step = vae_losses_extra.make_variant_gan_steps(dcfg)
+    dstate, dm = dis_step(dstate, m["mel"][rows], noise=m["vae_noise"][rows],
+                          starts=torch.tensor([21, 3]))
+    out.update(dis={k: float(v) for k, v in dm.items()}, dis_vae=dstate.vae.state_dict(),
+               dis_discs=dstate.discs.state_dict())
 
     vcfg = vocoder_gan.VocoderGANConfig()
     mel_fn = MelSpectrogram(MelConfig(n_fft=128, win_size=128, hop_size=16, n_mels=8),
@@ -170,16 +183,19 @@ def test_lcm_step_under_ddp_equals_global_step(ranks, single):
     _sd_close(r0["student"], single["student"])
 
 
-@pytest.mark.parametrize("trainer", ["vae_gan", "voc"])
+@pytest.mark.parametrize("trainer", ["vae_gan", "voc", "dis"])
 def test_gan_steps_average_gradients(ranks, single, trainer):
     """The VAE GAN (generator and discriminator steps: the adaptive weight's
     gradients averaged, the discriminator's BatchNorm over the global batch
     in both train-mode passes, R1's double backward through the all-reduce,
-    the running statistics) and the vocoder GAN."""
+    the running statistics), the vocoder GAN and the "dis" loss variant
+    (both towers' adaptive weights, the multi-window clamp over the global
+    batch's longest mel)."""
     r0, r1 = ranks
     assert r0[trainer] == r1[trainer]
     for k, v in single[trainer].items():
         assert r0[trainer][k] == pytest.approx(v, rel=1e-5, abs=1e-6), k
-    for sd in (("vae", "disc") if trainer == "vae_gan" else ("voc_gen", "mpd")):
+    for sd in {"vae_gan": ("vae", "disc"), "voc": ("voc_gen", "mpd"),
+               "dis": ("dis_vae", "dis_discs")}[trainer]:
         _sd_close(r0[sd], r1[sd], rtol=0, atol=0)
         _sd_close(r0[sd], single[sd])

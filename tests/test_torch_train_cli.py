@@ -4,8 +4,8 @@ synthetic manifest (mel 16 or 8 bins x 32 frames; 100 val + 8 train rows,
 batch 2), each writing metrics.jsonl with finite validation losses and a
 checkpoint, as `tests/test_train_cli.py` and `test_train_cli_diffusion.py`
 check for the JAX CLI. The diffusion runs fresh-initialise tiny towers and
-DiT (no checkpoint) and tokenize with a stub. Also: the config merge
-against JAX's, the VAE loss variants' ValueError, validation leaving the
+DiT (no checkpoint) and tokenize with a stub. Also: one epoch of each VAE
+loss variant, the config merge against JAX's, validation leaving the
 state as it was, and a checkpoint restoring into a fresh state.
 """
 
@@ -143,9 +143,29 @@ def test_diffusion_train_cli_runs(tmp_path, monkeypatch, target, val_key):
 
 @pytest.mark.parametrize("module", VARIANTS)
 def test_vae_loss_variants_raise(tmp_path, module):
-    cfg = _vae_cfg(tmp_path, f"ldm.modules.losses_audio.{module}.LPAPSWithDiscriminator")
-    with pytest.raises(ValueError, match=module):
-        _run(tmp_path, cfg)
+    """Each VAE loss variant (lossconfig.target contperceptual_multiw /
+    _dis / _mask, vqperceptual) trains one epoch on the CPU, where the port
+    raised ValueError before it had them (hence the name): finite val
+    losses of its towers in metrics.jsonl and a checkpoint holding the VAE
+    and the variant's discriminators."""
+    (tmp_path / "data").mkdir()
+    _manifest(tmp_path / "data", 16)
+    cfg = _vae_cfg(tmp_path / "data", f"ldm.modules.losses_audio.{module}.LPAPSWithDiscriminator")
+    cfg["model"]["params"]["lossconfig"]["params"]["time_lengths"] = [16, 32]
+    rundir, lines, ckpts = _run(tmp_path, cfg)
+    keys = ["val/nll_loss", "val/kl_loss", "val/disc_loss_total"]
+    if module in ("contperceptual_multiw", "contperceptual_dis"):
+        keys += ["val/g_multi_loss", "val/d_weight_g_multi", "val/disc_loss_multi"]
+    if module != "contperceptual_multiw":
+        keys += ["val/g_loss", "val/d_weight_g", "val/disc_loss"]
+    for key in keys:
+        _val(lines, key)
+    assert ckpts == ["4"]
+    sd = torch.load(rundir / "checkpoints" / "4" / "state.pt", weights_only=True)
+    assert sd["step"] == 4 and "decoder.conv_out.weight" in sd["vae"]
+    towers = {k.split(".")[0] for k in sd["discs"]}
+    assert towers == ({"multi"} if module == "contperceptual_multiw" else
+                      {"patch", "multi"} if module == "contperceptual_dis" else {"patch"})
 
 
 def test_unknown_targets_raise(tmp_path):

@@ -12,7 +12,9 @@ then writes <workdir>/rank<r>.pt with:
   vae_gan  one VAE-GAN generator + discriminator step (SGD lr 1): metrics,
            the updated VAE and discriminator (running statistics included);
   voc      one vocoder discriminator + generator step: metrics and the
-           updated generator and MPD.
+           updated generator and MPD;
+  dis      one generator + discriminator step of the "dis" VAE loss
+           variant: metrics, the updated VAE and both towers.
 Each rank feeds its half of one global batch built by `build` in the test.
 """
 
