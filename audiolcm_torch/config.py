@@ -1,14 +1,16 @@
 """The reference YAML schema -> the port's modules (`audiolcm_tpu/config.py`).
 
-Covers what the three shipped YAMLs (configs/audiolcm.yaml, teacher.yaml,
-autoencoder1d.yaml) and a vocoder args.yml need: the three targets they
-name (ConcatDiT2MLP, the 1D AutoencoderKL, FrozenCLAPFLANEmbedder) through
-an explicit registry in place of the reference's reflection
-(`instantiate_from_config`, ldm/util.py:111-126), and BigVGAN from args.
-`build_from_target` builds a node's modules; `parse_diffusion_config`
-reads an LDM's `model.params` into constructor arguments. Modules are
-built on the CPU in float32; the caller moves them. `load_yaml` imports
-PyYAML only when called.
+An explicit registry of the reference's target strings in place of its
+reflection (`instantiate_from_config`, ldm/util.py:111-126): the
+denoisers ConcatDiT2MLP, ConcatDiT, ConcatOrderDiT(2) and TxtFlagLargeDiT,
+the 1D and the 2D AutoencoderKL, and the text conditioners
+FrozenCLAPFLANEmbedder, FrozenT5Embedder, FrozenFLANEmbedder and
+FrozenCLAPEmbedder; BigVGAN from a vocoder args.yml. The two LAION CLAP
+conditioners are not ported yet and raise KeyError. `build_from_target`
+builds a node's modules; `parse_diffusion_config` reads an LDM's
+`model.params` into constructor arguments. Modules are built on the CPU in
+float32; the caller moves them. `load_yaml` imports PyYAML only when
+called.
 """
 
 from __future__ import annotations
@@ -18,9 +20,12 @@ from typing import Any, Callable, Dict
 
 from audiolcm_torch.models.bigvgan import BigVGAN, BigVGANConfig
 from audiolcm_torch.models.clap_text import BertConfig, ClapTextEncoder
-from audiolcm_torch.models.dit import ConcatDiT2MLP
+from audiolcm_torch.models.dit import ConcatDiT, ConcatDiT2MLP
+from audiolcm_torch.models.flag_dit import TxtFlagLargeDiT
+from audiolcm_torch.models.order_dit import ConcatOrderDiT, ConcatOrderDiT2
 from audiolcm_torch.models.t5_encoder import T5Config, T5Encoder
 from audiolcm_torch.models.vae1d import AutoencoderKL1D, VAEConfig
+from audiolcm_torch.models.vae2d import AutoencoderKL2D, VAE2DConfig
 
 
 def load_yaml(path: str) -> dict:
@@ -30,11 +35,34 @@ def load_yaml(path: str) -> dict:
         return yaml.safe_load(f)
 
 
-def _dit_kwargs(p: dict) -> dict:
-    return dict(in_channels=p["in_channels"], context_dim=p["context_dim"],
-                hidden_size=p.get("hidden_size", 576), depth=p.get("depth", 4),
-                num_heads=p.get("num_heads", 8), max_len=p.get("max_len", 1000),
-                out_channels=p.get("out_channels"))
+@dataclasses.dataclass(frozen=True)
+class DiTSpec:
+    """A denoiser's class and its constructor arguments."""
+
+    cls: type
+    kwargs: dict
+
+    def build(self, **knobs):
+        return self.cls(**self.kwargs, **knobs)
+
+
+def _dit(cls: type) -> Callable[[dict], DiTSpec]:
+    """The kwargs the JAX registry reads for `cls` (`audiolcm_tpu/config.py:
+    30-43,104-134`): out_channels for ConcatDiT2MLP only, the grouped-KV,
+    FF-width and qk-norm knobs for TxtFlagLargeDiT only."""
+
+    def parse(p: dict) -> DiTSpec:
+        kw = dict(in_channels=p["in_channels"], context_dim=p["context_dim"],
+                  hidden_size=p.get("hidden_size", 576), depth=p.get("depth", 4),
+                  num_heads=p.get("num_heads", 8), max_len=p.get("max_len", 1000))
+        if cls is ConcatDiT2MLP:
+            kw["out_channels"] = p.get("out_channels")
+        elif cls is TxtFlagLargeDiT:
+            kw.update(n_kv_heads=p.get("n_kv_heads"), multiple_of=p.get("multiple_of", 256),
+                      qk_norm=bool(p.get("qk_norm") or False))
+        return DiTSpec(cls, kw)
+
+    return parse
 
 
 def _vae_config(p: dict) -> VAEConfig:
@@ -48,6 +76,17 @@ def _vae_config(p: dict) -> VAEConfig:
         dropout=dd.get("dropout", 0.0))
 
 
+def _vae2d_config(p: dict) -> VAE2DConfig:
+    dd = p["ddconfig"]
+    return VAE2DConfig(
+        in_channels=dd["in_channels"], out_ch=dd["out_ch"], ch=dd["ch"],
+        ch_mult=tuple(dd["ch_mult"]), num_res_blocks=dd["num_res_blocks"],
+        attn_resolutions=tuple(dd.get("attn_resolutions", ())),
+        resolution=dd.get("resolution", 80), z_channels=dd["z_channels"],
+        embed_dim=p["embed_dim"], double_z=dd.get("double_z", True),
+        dropout=dd.get("dropout", 0.0))
+
+
 def _clapflan(p: dict) -> dict:
     """Tower configs; `bert_config`/`t5_config`/`d_proj` are the JAX
     package's extensions for scaled-down towers."""
@@ -56,23 +95,72 @@ def _clapflan(p: dict) -> dict:
             "d_proj": p.get("d_proj", 1024), "max_length": p.get("max_length", 77)}
 
 
+def _t5_only(p: dict) -> dict:
+    """FrozenT5Embedder / FrozenFLANEmbedder (`encoders/modules.py:143,172`):
+    one T5 tower, no CLAP half."""
+    return {"bert": None, "t5": T5Config(**(p.get("t5_config") or {})), "d_proj": None,
+            "max_length": p.get("max_length", 77), "single_tower": True}
+
+
+def _clap_only(p: dict) -> dict:
+    """FrozenCLAPEmbedder (`encoders/modules.py:201`): the CLAP tower alone."""
+    return {"bert": BertConfig(**(p.get("bert_config") or {})), "t5": None,
+            "d_proj": p.get("d_proj", 1024), "max_length": p.get("max_length", 77),
+            "single_tower": True}
+
+
+def _laion(p: dict):
+    raise KeyError("the LAION CLAP conditioners (FrozenLAIONCLAPEmbedder, "
+                   "FrozenLAIONCLAPSetenceEmbedder) are not ported yet: they need the "
+                   "HTSAT / RoBERTa towers of audiolcm_tpu/models/open_clap, the next slice "
+                   "of the port (slice 11 in ROADMAP.md)")
+
+
+_DIT = "ldm.modules.diffusionmodules."
+_ENC = "ldm.modules.encoders.modules."
 REGISTRY: Dict[str, Callable[[dict], Any]] = {
-    "ldm.modules.diffusionmodules.concatDiT.ConcatDiT2MLP": _dit_kwargs,
+    _DIT + "concatDiT.ConcatDiT2MLP": _dit(ConcatDiT2MLP),
+    _DIT + "concatDiT.ConcatDiT": _dit(ConcatDiT),
+    _DIT + "concatDiT.ConcatOrderDiT": _dit(ConcatOrderDiT),
+    _DIT + "concatDiT.ConcatOrderDiT2": _dit(ConcatOrderDiT2),
+    _DIT + "flag_large_dit.TxtFlagLargeDiT": _dit(TxtFlagLargeDiT),
     "ldm.models.autoencoder1d.AutoencoderKL": _vae_config,
-    "ldm.modules.encoders.modules.FrozenCLAPFLANEmbedder": _clapflan,
+    "ldm.models.autoencoder.AutoencoderKL": _vae2d_config,
+    _ENC + "FrozenCLAPFLANEmbedder": _clapflan,
+    _ENC + "FrozenT5Embedder": _t5_only,
+    _ENC + "FrozenFLANEmbedder": _t5_only,
+    _ENC + "FrozenCLAPEmbedder": _clap_only,
+    _ENC + "FrozenLAIONCLAPEmbedder": _laion,
+    _ENC + "FrozenLAIONCLAPSetenceEmbedder": _laion,
 }
 
 
+def _vae_cls(cfg) -> type:
+    return AutoencoderKL2D if isinstance(cfg, VAE2DConfig) else AutoencoderKL1D
+
+
+def _towers(cond: dict) -> dict:
+    """The text conditioner's modules in the JAX registry's dict shape:
+    {"clap_text", "t5", "max_length"} (+ "single_tower": True, the absent
+    tower None)."""
+    out = {"clap_text": None if cond["bert"] is None else ClapTextEncoder(cond["bert"],
+                                                                         cond["d_proj"]),
+           "t5": None if cond["t5"] is None else T5Encoder(cond["t5"]),
+           "max_length": cond["max_length"]}
+    if cond.get("single_tower"):
+        out["single_tower"] = True
+    return out
+
+
 def build_from_target(node: dict):
-    """A `{target, params}` node's modules: the DiT, the VAE, or the text
-    towers as {"clap_text", "t5", "max_length"}."""
+    """A `{target, params}` node's modules: a denoiser, a VAE, or the text
+    towers (`_towers`)."""
     parsed = _parse(node)
-    if isinstance(parsed, VAEConfig):
-        return AutoencoderKL1D(parsed)
-    if "bert" in parsed:
-        return {"clap_text": ClapTextEncoder(parsed["bert"], parsed["d_proj"]),
-                "t5": T5Encoder(parsed["t5"]), "max_length": parsed["max_length"]}
-    return ConcatDiT2MLP(**parsed)
+    if isinstance(parsed, DiTSpec):
+        return parsed.build()
+    if isinstance(parsed, (VAEConfig, VAE2DConfig)):
+        return _vae_cls(parsed)(parsed)
+    return _towers(parsed)
 
 
 def _parse(node: dict):
@@ -82,13 +170,13 @@ def _parse(node: dict):
     return REGISTRY[target](node.get("params") or {})
 
 
-def build_vae(node: dict) -> AutoencoderKL1D:
+def build_vae(node: dict):
     """The VAE of one `{target, params}` node: a root model of
-    configs/autoencoder1d.yaml or an LDM's first_stage_config."""
+    configs/autoencoder1d.yaml or an LDM's first_stage_config (1D or 2D)."""
     cfg = _parse(node)
-    if not isinstance(cfg, VAEConfig):
+    if not isinstance(cfg, (VAEConfig, VAE2DConfig)):
         raise ValueError(f"config target {node['target']!r} is not a VAE")
-    return AutoencoderKL1D(cfg)
+    return _vae_cls(cfg)(cfg)
 
 
 @dataclasses.dataclass
@@ -96,8 +184,8 @@ class DiffusionSystemConfig:
     """Parsed `model.params`: constructor arguments, not modules, so the
     caller picks knobs (fuse flags) before building."""
 
-    dit: dict
-    vae: VAEConfig
+    dit: DiTSpec
+    vae: Any  # VAEConfig or VAE2DConfig
     cond: dict
     timesteps: int = 1000
     linear_start: float = 0.00085
@@ -109,17 +197,25 @@ class DiffusionSystemConfig:
     scale_by_std: bool = False
     base_learning_rate: float = 3.0e-6
 
-    def build_dit(self, **knobs) -> ConcatDiT2MLP:
-        return ConcatDiT2MLP(**self.dit, **knobs)
+    def build_dit(self, **knobs):
+        """The class the unet_config names; knobs (use_flash, fuse_qkv) only
+        where that class has them (ConcatDiT2MLP)."""
+        return self.dit.build(**knobs)
 
-    def build_vae(self) -> AutoencoderKL1D:
-        return AutoencoderKL1D(self.vae)
+    def build_vae(self):
+        return _vae_cls(self.vae)(self.vae)
 
     def build_clap_text(self, fuse_proj: bool = False) -> ClapTextEncoder:
-        return ClapTextEncoder(self.cond["bert"], self.cond["d_proj"], fuse_proj)
+        return ClapTextEncoder(self._tower("bert"), self.cond["d_proj"], fuse_proj)
 
     def build_t5(self, fuse_proj: bool = False) -> T5Encoder:
-        return T5Encoder(self.cond["t5"], fuse_proj)
+        return T5Encoder(self._tower("t5"), fuse_proj)
+
+    def _tower(self, name: str):
+        if self.cond[name] is None:
+            raise ValueError(f"the cond_stage_config is a single-tower conditioner without "
+                             f"the {name} tower")
+        return self.cond[name]
 
 
 def parse_diffusion_config(cfg: dict) -> DiffusionSystemConfig:

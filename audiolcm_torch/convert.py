@@ -7,12 +7,19 @@ reference checkpoint loads with `load_state_dict` + `assign_state_dict`
 package's parameter trees (numpy leaves) back into that layout:
 
   Dense kernel (in, out)           -> Linear weight (out, in)
-  Conv kernel (k, in, out)         -> Conv1d weight (out, in, k)
+  Conv kernel (k..., in, out)      -> Conv1d / Conv2d weight (out, in, k...)
   ConvTranspose1dTorchParity       -> ConvTranspose1d weight (in, out, k)
     kernel (k, in, out), k flipped    (time flip undone)
   GroupNorm/LayerNorm scale        -> weight
   snake alpha/beta                 -> as stored (log scale)
   fused Q/K/V, T5 gated-FF pairs   -> split back into the separate tensors
+
+The variant models: `dit_from_jax` also takes ConcatDiT and the order
+DiTs, `vae_from_jax` the 2D KL and VQ VAEs; `flag_dit_from_jax` and
+`text_transformer_from_jax` keep the JAX trees' names (their modules have
+no reference converter); `xtransformer_from_jax` writes the reference
+`TransformerWrapper` layout that a reference checkpoint loads into
+directly.
 """
 
 from __future__ import annotations
@@ -135,7 +142,10 @@ def _split_dense(p: dict, names, out: dict) -> None:
 
 
 def _conv(p: dict, name: str, out: dict) -> None:
-    out[f"{name}.weight"] = _t(np.transpose(np.asarray(p["kernel"], np.float32), (2, 1, 0))).contiguous()
+    """Conv kernel (k..., in, out) -> Conv1d / Conv2d weight (out, in, k...)."""
+    k = np.asarray(p["kernel"], np.float32)
+    perm = (k.ndim - 1, k.ndim - 2) + tuple(range(k.ndim - 2))
+    out[f"{name}.weight"] = _t(np.transpose(k, perm)).contiguous()
     out[f"{name}.bias"] = _t(p["bias"])
 
 
@@ -160,12 +170,18 @@ def _attention(p: dict, name: str, out: dict) -> None:
 
 
 def dit_from_jax(p: dict) -> SD:
+    """ConcatDiT2MLP, ConcatDiT, ConcatOrderDiT and ConcatOrderDiT2 (the
+    condition embedders and the order embedding each has)."""
     out: SD = {}
     te = p["t_embedder"]
     _dense(te["mlp_0"], "t_embedder.mlp.0", out)
     _dense(te["mlp_2"], "t_embedder.mlp.2", out)
     _dense(te["proj_w"], "t_embedder.proj_w", out)
-    for c in ("c1_embedder", "c2_embedder"):
+    if "order_embedding" in p:
+        out["order_embedding.weight"] = _t(p["order_embedding"]["embedding"])
+    for c in ("c1_embedder", "c2_embedder", "c_embedder"):
+        if c not in p:
+            continue
         _dense(p[c]["mlp_0"], f"{c}.mlp.0", out)
         _dense(p[c]["mlp_2"], f"{c}.mlp.2", out)
         _norm(p[c]["mlp_3"], f"{c}.mlp.3", out)
@@ -206,8 +222,11 @@ def _attnblock(p: dict, name: str, out: dict) -> None:
 
 
 def vae_from_jax(p: dict) -> SD:
-    """Both halves of the VAE with their quant convs."""
+    """Both halves of the VAE with their quant convs: the 1D VAE, the 2D KL
+    VAE, and the 2D VQ model with its codebook."""
     out: SD = {}
+    if "quantize" in p:
+        out["quantize.embedding.weight"] = _t(p["quantize"]["embedding"])
     _conv(p["quant_conv"], "quant_conv", out)
     _conv(p["post_quant_conv"], "post_quant_conv", out)
     enc = p["encoder"]
@@ -238,6 +257,101 @@ def vae_from_jax(p: dict) -> SD:
             _attnblock(sub, f"decoder.up.{m.group(1)}.attn.{m.group(2)}", out)
         elif m := re.fullmatch(r"up_(\d+)_upsample", key):
             _conv(sub["conv"], f"decoder.up.{m.group(1)}.upsample.conv", out)
+    return out
+
+
+def flag_dit_from_jax(p: dict) -> SD:
+    """TxtFlagLargeDiT: the JAX tree's names, dotted (blocks_<i> ->
+    blocks.<i>; Dense kernels transposed, LayerNorm scales to weights)."""
+    out: SD = {}
+    for name in ("proj_in", "t_mlp_0", "t_mlp_2", "cap_proj", "final_adaLN", "final_linear"):
+        _dense(p[name], name, out)
+    _norm(p["cap_norm"], "cap_norm", out)
+    for key, blk in p.items():
+        if not (m := re.fullmatch(r"blocks_(\d+)", key)):
+            continue
+        b = f"blocks.{m.group(1)}"
+        _dense(blk["adaLN_modulation"], f"{b}.adaLN_modulation", out)
+        for n in ("attention_y_norm", "attention_norm", "ffn_norm"):
+            out[f"{b}.{n}.weight"] = _t(blk[n]["weight"])
+        for n, sub in blk["attention"].items():
+            if n == "gate":
+                out[f"{b}.attention.gate"] = _t(sub)
+            elif n.endswith("_norm"):
+                _norm(sub, f"{b}.attention.{n}", out)
+            else:
+                _dense(sub, f"{b}.attention.{n}", out)
+        for n in ("w1", "w2", "w3"):
+            _dense(blk["feed_forward"][n], f"{b}.feed_forward.{n}", out)
+    return out
+
+
+def text_transformer_from_jax(p: dict) -> SD:
+    """TransformerTextEncoder: attn_<i>, norm1_<i>, ... -> layers.<i>.*."""
+    out: SD = {"token_emb.weight": _t(p["token_emb"]["embedding"]),
+               "pos_emb": _t(p["pos_emb"])}
+    _norm(p["final_norm"], "final_norm", out)
+    for key, sub in p.items():
+        if not (m := re.fullmatch(r"(attn|norm1|norm2|ff_in|ff_out)_(\d+)", key)):
+            continue
+        name = f"layers.{m.group(2)}.{m.group(1)}"
+        if m.group(1) == "attn":
+            _attention(sub, name, out)
+        elif m.group(1).startswith("norm"):
+            _norm(sub, name, out)
+        else:
+            _dense(sub, name, out)
+    return out
+
+
+def xtransformer_from_jax(p: dict, encoder) -> SD:
+    """The JAX XTransformerWrapper's parameters -> the reference
+    `TransformerWrapper` state dict (the inverse of the JAX package's
+    `convert.xtransformer.convert_wrapper`). `encoder` is the port's
+    XTransformerEncoder of the same options (its layer types and flags)."""
+    out: SD = {"token_emb.weight": _t(p["token_emb"])}
+    if "pos_emb" in p:
+        out["pos_emb.emb.weight"] = _t(p["pos_emb"])
+    for name in ("project_emb", "to_logits"):
+        if name in p:
+            _dense(p[name], name, out)
+    if "memory_tokens" in p:
+        out["memory_tokens"] = _t(p["memory_tokens"])
+    _norm(p["final_norm"], "norm", out)
+    e = p["encoder"]
+    for i, kind in enumerate(encoder.layer_types):
+        base = f"attn_layers.layers.{i}"
+        norm = e.get(f"norm_{i}")
+        if norm is None:
+            # no norm (ReZero), or post-norm's last layer, which never applies
+            # its norm: JAX has none, the reference module its init
+            for k, v in encoder.layers[i][0].state_dict().items():
+                out[f"{base}.0.{k}"] = v.detach().clone()
+        elif "g" in norm:
+            out[f"{base}.0.g"] = _t(norm["g"])
+        else:
+            _norm(norm, f"{base}.0", out)
+        if kind in ("a", "c"):
+            inner = f"{base}.1.fn" if encoder.use_rezero else f"{base}.1"
+            a = e[f"attn_{i}"]
+            for n in ("to_q", "to_k", "to_v"):
+                _dense(a[n], f"{inner}.{n}", out)
+            _dense(a["to_out"], f"{inner}.to_out.0" if encoder.on_attn else f"{inner}.to_out",
+                   out)
+            for n in ("pre_softmax_proj", "post_softmax_proj", "mem_k", "mem_v"):
+                if n in a:
+                    out[f"{inner}.{n}"] = _t(a[n])
+            if encoder.use_rezero:
+                out[f"{base}.1.g"] = _t(e[f"rezero_g_{i}"])
+        else:
+            inner = f"{base}.1.fn" if encoder.macaron else f"{base}.1"
+            ff = e[f"ff_{i}"]
+            _dense(ff["proj_in"], f"{inner}.net.0.proj" if encoder.ff_glu else f"{inner}.net.0.0",
+                   out)
+            _dense(ff["proj_out"], f"{inner}.net.2", out)
+        if f"gate_{i}" in e:
+            for n, v in e[f"gate_{i}"].items():
+                out[f"{base}.2.gru.{n}"] = _t(v)
     return out
 
 

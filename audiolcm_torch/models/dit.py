@@ -7,6 +7,11 @@ Reference `concatDiT.py:238-304`, the live backbone of configs/audiolcm.yaml:
   (GroupNorm -> 1x1 in -> [self-attn, self-attn, conv-GEGLU-FF] -> 1x1 out
   -> residual), slice off the condition prefix, GroupNorm(16) + 1x1 head.
 
+`ConcatDiT` (`concatDiT.py:173-236`) is the same backbone with one
+condition embedder over the whole context. Neither it nor the order DiTs
+built on it (`models/order_dit.py`) has the flash or fused-QKV knob: the
+reference and the JAX package run them on einsum attention only.
+
 Public layout (B, T, C); parameters in the reference state-dict layout.
 """
 
@@ -117,35 +122,29 @@ class _FinalLayer(nn.Module):
         self.conv1d = nn.Conv1d(hidden_size, out_channels, 1)
 
 
-class ConcatDiT2MLP(nn.Module):
-    """Dual condition embedders over the CLAP/T5 halves of the context.
+class _ConcatBackbone(nn.Module):
+    """What the concat DiTs share: the timestep embedder, proj_in, the
+    positions, the blocks and the head. A subclass adds its condition
+    embedders and calls `backbone`."""
 
-    Shipped config: in_channels=20, context_dim=1024, hidden_size=576,
-    num_heads=8, depth=4, max_len=1000."""
-
-    def __init__(self, in_channels: int = 20, context_dim: int = 1024, hidden_size: int = 576,
-                 depth: int = 4, num_heads: int = 8, max_len: int = 1000,
-                 use_flash: bool = False, fuse_qkv: bool = False,
-                 out_channels: Optional[int] = None):
+    def __init__(self, in_channels: int, context_dim: int, hidden_size: int, depth: int,
+                 num_heads: int, max_len: int, out_channels: int, use_flash: bool = False,
+                 fuse_qkv: bool = False):
         super().__init__()
         self.in_channels, self.context_dim = in_channels, context_dim
-        self.fuse_qkv = fuse_qkv
         self.t_embedder = TimestepEmbedder(hidden_size)
-        self.c1_embedder = ConditionEmbedder(context_dim, hidden_size)
-        self.c2_embedder = ConditionEmbedder(context_dim, hidden_size)
         self.proj_in = nn.Conv1d(in_channels, hidden_size, 5, padding=2)
         self.pos_emb = nn.Embedding(max_len, hidden_size)
         self.blocks = nn.ModuleList([
             TemporalTransformer(hidden_size, num_heads, use_flash, fuse_qkv)
             for _ in range(depth)])
-        self.final_layer = _FinalLayer(hidden_size, out_channels or in_channels)
+        self.final_layer = _FinalLayer(hidden_size, out_channels)
 
-    def forward(self, x: torch.Tensor, t: torch.Tensor, context: torch.Tensor,
-                w_cond: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """x (B, T, in_ch), t (B,), context (B, 2*Lc, context_dim) -> eps (B, T, out_ch)."""
+    def backbone(self, x: torch.Tensor, t: torch.Tensor, w_cond: Optional[torch.Tensor],
+                 cond: torch.Tensor) -> torch.Tensor:
+        """[timestep token | condition tokens | proj_in(x)] + positions ->
+        blocks -> the latent frames through the final GroupNorm and head."""
         t_tok = self.t_embedder(t, w_cond)[:, None, :]
-        c1, c2 = context.chunk(2, dim=1)
-        cond = torch.cat([self.c1_embedder(c1), self.c2_embedder(c2)], dim=1)
         h = self.proj_in(x.transpose(1, 2)).transpose(1, 2)
         # cast the f32 timestep token and the condition tokens to the latent
         # stream's dtype so a bf16 stream stays bf16
@@ -156,3 +155,42 @@ class ConcatDiT2MLP(nn.Module):
         h = h[:, cond.shape[1] + 1:]
         h = group_norm_cl(h, self.final_layer.norm_final)
         return conv1x1(h, self.final_layer.conv1d)
+
+
+class ConcatDiT2MLP(_ConcatBackbone):
+    """Dual condition embedders over the CLAP/T5 halves of the context.
+
+    Shipped config: in_channels=20, context_dim=1024, hidden_size=576,
+    num_heads=8, depth=4, max_len=1000."""
+
+    def __init__(self, in_channels: int = 20, context_dim: int = 1024, hidden_size: int = 576,
+                 depth: int = 4, num_heads: int = 8, max_len: int = 1000,
+                 use_flash: bool = False, fuse_qkv: bool = False,
+                 out_channels: Optional[int] = None):
+        super().__init__(in_channels, context_dim, hidden_size, depth, num_heads, max_len,
+                         out_channels or in_channels, use_flash, fuse_qkv)
+        self.fuse_qkv = fuse_qkv
+        self.c1_embedder = ConditionEmbedder(context_dim, hidden_size)
+        self.c2_embedder = ConditionEmbedder(context_dim, hidden_size)
+
+    def forward(self, x: torch.Tensor, t: torch.Tensor, context: torch.Tensor,
+                w_cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x (B, T, in_ch), t (B,), context (B, 2*Lc, context_dim) -> eps (B, T, out_ch)."""
+        c1, c2 = context.chunk(2, dim=1)
+        cond = torch.cat([self.c1_embedder(c1), self.c2_embedder(c2)], dim=1)
+        return self.backbone(x, t, w_cond, cond)
+
+
+class ConcatDiT(_ConcatBackbone):
+    """One condition embedder over the whole context (B, Lc, context_dim)."""
+
+    def __init__(self, in_channels: int = 20, context_dim: int = 1024, hidden_size: int = 576,
+                 depth: int = 4, num_heads: int = 8, max_len: int = 1000):
+        super().__init__(in_channels, context_dim, hidden_size, depth, num_heads, max_len,
+                         in_channels)
+        self.c_embedder = ConditionEmbedder(context_dim, hidden_size)
+
+    def forward(self, x: torch.Tensor, t: torch.Tensor, context: torch.Tensor,
+                w_cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x (B, T, in_ch), t (B,), context (B, Lc, context_dim) -> eps (B, T, in_ch)."""
+        return self.backbone(x, t, w_cond, self.c_embedder(context))

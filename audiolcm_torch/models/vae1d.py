@@ -193,11 +193,12 @@ class Decoder1D(nn.Module):
 
 
 class DiagonalGaussian:
-    """Posterior from the channels-last moments [mean | logvar], logvar
-    clipped to [-30, 20] (`ldm/modules/distributions/distributions.py:24-64`)."""
+    """Posterior from the moments [mean | logvar] on axis `dim` (the last:
+    channels-last; 1 for the 2D VAE's NCHW), logvar clipped to [-30, 20]
+    (`ldm/modules/distributions/distributions.py:24-64`)."""
 
-    def __init__(self, moments: torch.Tensor):
-        self.mean, logvar = moments.chunk(2, dim=-1)
+    def __init__(self, moments: torch.Tensor, dim: int = -1):
+        self.mean, logvar = moments.chunk(2, dim=dim)
         self.logvar = logvar.clamp(-30.0, 20.0)
         self.std = torch.exp(0.5 * self.logvar)
         self.var = torch.exp(self.logvar)

@@ -77,6 +77,13 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                 cli.eval_acceptance end to end on a full-width synthetic
                 checkpoint with random CLAP and VGGish files (eval_cli);
                 0 K1 / K3 launches
+ 14. variant  — the variant modules at full width, each card vs CPU with
+                its ms (variant_models: ConcatDiT, ConcatOrderDiT(2),
+                TxtFlagLargeDiT, the 2D KL VAE and the VQ model, the
+                trainable text encoder), and the auxiliary LDM trainers
+                (ldm_variants: the inpaint, order and classifier steps card
+                vs CPU, ms per step, peak GB and f32 bound; the noisy
+                accuracy sweep); 0 K1 / K3 launches
 then the seconds of each phase, the kernels line and, last, the device
 line.
 """
@@ -2760,6 +2767,305 @@ def eval_cli_phase(device, full: bool, card: dict) -> dict:
     return row
 
 
+def variant_inputs(full: bool, seed: int) -> dict:
+    """The variant denoisers' shapes and inputs: latent (8, 312, 20) and
+    caption tokens (8, 77, 1024) at full width, with BERT-style ids
+    ('|' separators, <start>, <eos>, padding) for the order maps."""
+    import numpy as np
+
+    from audiolcm_torch.models.order_dit import SEP_ID
+
+    b, t_lat, n_tok, ctx_dim = (8, 312, 77, 1024) if full else (2, 16, 7, 32)
+    g = torch.Generator().manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(1000, 3000, (b, n_tok))
+    ids[:, 0] = 101
+    for bi in range(b):
+        end = int(rng.integers(n_tok // 2, n_tok))
+        ids[bi, rng.choice(np.arange(2, end - 1), min(3, end - 3), replace=False)] = SEP_ID
+        ids[bi, end] = 102
+        ids[bi, end + 1:] = 0
+    orders = [list(rng.integers(0, 99, int(rng.integers(1, 5)))) for _ in range(b)]
+    return {"x": torch.randn(b, t_lat, 20 if full else 4, generator=g),
+            "t": torch.randint(0, 1000, (b,), generator=g),
+            "context": torch.randn(b, n_tok, ctx_dim, generator=g),
+            "w": torch.randn(b, 256, generator=g), "ids": ids, "orders": orders}
+
+
+def vq_ties(z: torch.Tensor, codebook: torch.Tensor, idx_a: torch.Tensor,
+            idx_b: torch.Tensor) -> dict:
+    """Where two argmins over |z|^2 - 2 z.e + |e|^2 differ: the two codes'
+    distances in f64, which must tie at f32 rounding (within 8 f32 ulps of
+    |z|^2 + |e|^2)."""
+    flat = z.detach().double().cpu().permute(0, 2, 3, 1).reshape(-1, z.shape[1])
+    a, b = idx_a.cpu().reshape(-1), idx_b.cpu().reshape(-1)
+    rows = (a != b).nonzero().flatten()
+    cb = codebook.detach().double().cpu()
+    if not len(rows):
+        return {"mismatches": 0, "ties": True, "max_gap_over_ulp": 0.0}
+    za = flat[rows]
+    d = lambda i: (za - cb[i]).square().sum(1)
+    scale = za.square().sum(1) + cb[a[rows]].square().sum(1)
+    gap = (d(a[rows]) - d(b[rows])).abs() / (scale * torch.finfo(torch.float32).eps)
+    return {"mismatches": int(len(rows)), "ties": bool((gap <= 8).all()),
+            "max_gap_over_ulp": float(gap.max())}
+
+
+def variant_models_phase(device, full: bool, card: dict) -> list:
+    """The variant modules at full width, random weights from a seed, f32
+    with TF32 off, each on the card against the CPU on the same inputs,
+    with ms per forward (CUDA events, median of 5): ConcatDiT,
+    ConcatOrderDiT and ConcatOrderDiT2 (max_objs 10) at hidden 576, depth
+    4, 8 heads, context (8, 77, 1024), latent (8, 312, 20), and
+    TxtFlagLargeDiT at the same width (max abs error <= DIT_TOL); the 2D KL
+    VAE and the VQ model (8192 codes) at VAE2DConfig's defaults on (4, 1,
+    80, 624) mels (moments, latents and decodes of one z relative to scale
+    <= MOMENTS_REL_TOL; VQ indices equal, or the two codes tie at f32
+    rounding); TransformerTextEncoder at its defaults on batch 8 x 77 ids
+    (DIT_TOL). 0 K1 / K3 launches. The rehearsal: tiny widths."""
+    import copy
+
+    from audiolcm_torch.models.dit import ConcatDiT
+    from audiolcm_torch.models.flag_dit import TxtFlagLargeDiT
+    from audiolcm_torch.models.order_dit import (ConcatOrderDiT, ConcatOrderDiT2,
+                                                 compute_order_indices, compute_order_insertion)
+    from audiolcm_torch.models.text_transformer import TransformerTextEncoder
+    from audiolcm_torch.models.vae2d import AutoencoderKL2D, VAE2DConfig, VQModel2D
+
+    t0 = time.time()
+    reset_counts()
+    cpu = torch.device("cpu")
+    on_card = device.type == "cuda"
+    rows, fails = [], []
+    inp = variant_inputs(full, seed=100)
+    dit_kw = ({} if full else dict(in_channels=4, context_dim=32, hidden_size=32, depth=1,
+                                   num_heads=4))
+    max_objs = 10 if full else 3
+    order_index = torch.from_numpy(compute_order_indices(inp["ids"], inp["orders"]))
+    src, oid = map(torch.from_numpy, compute_order_insertion(inp["ids"], inp["orders"],
+                                                             max_objs=max_objs))
+    x, t, ctx, w = inp["x"], inp["t"], inp["context"], inp["w"]
+
+    def on(dev, *args):
+        return [a.to(dev) for a in args]
+
+    def timed(fn):
+        if not on_card:
+            return "not measured"
+        with torch.inference_mode():
+            fn()
+            return sorted(timed_steps(fn, 5))[2]
+
+    def pair(name, model, run, seed, tol, rel=False, extra=None, held=None):
+        """run(model, dev) -> an output tensor or a tuple of them; the card's
+        (the first `held` of them, or all) against the CPU's, then the card's
+        ms; extra(card model, outputs) adds to the row (and "ok")."""
+        init_random_(model, torch.Generator().manual_seed(seed))
+        outs = {}
+        for dev in (device, cpu):
+            m = copy.deepcopy(model).to(dev).eval().requires_grad_(False)
+            with torch.inference_mode():
+                outs[dev.type] = run(m, dev)
+            if dev == device:
+                m_dev = m
+        got, want = (outs[device.type], outs["cpu"])
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        errs = [rel_to_scale(a, b) if rel else float((a.double().cpu() - b.double()).abs().max())
+                for a, b in zip(got[:held], want[:held])]
+        row = {"model": name, "shape": list(want[0].shape),
+               ("max_rel_err" if rel else "max_abs_err"): max(errs), "tol": tol,
+               "max_abs_out": float(want[0].abs().max()),
+               "params_m": sum(p.numel() for p in model.parameters()) / 1e6,
+               "ms": timed(lambda: run(m_dev, device))}
+        row.update(extra(m_dev, outs) if extra else {})
+        ok = max(errs) <= tol and all(bool(torch.isfinite(a).all()) for a in got[:held])
+        if not ok or not row.get("ok", True):
+            fails.append(name)
+        rows.append(row)
+        emit({"phase": "variant_models", **row, "card": card["nvidia_smi"]})
+
+    pair("ConcatDiT", ConcatDiT(**dit_kw),
+         lambda m, d: m(*on(d, x, t, ctx, w)), 101, DIT_TOL)
+    pair("ConcatOrderDiT", ConcatOrderDiT(**dit_kw),
+         lambda m, d: m(*on(d, x, t, ctx, order_index, w)), 102, DIT_TOL)
+    pair("ConcatOrderDiT2", ConcatOrderDiT2(**dit_kw),
+         lambda m, d: m(*on(d, x, t, ctx, src, oid, w)), 103, DIT_TOL)
+    pair("TxtFlagLargeDiT", TxtFlagLargeDiT(**dit_kw),
+         lambda m, d: m(*on(d, x, t, ctx)), 104, DIT_TOL)
+
+    vae_cfg = VAE2DConfig() if full else VAE2DConfig(ch=32, ch_mult=(1, 2), num_res_blocks=1,
+                                                     resolution=16)
+    g = torch.Generator().manual_seed(105)
+    mel = torch.randn((4, 1, 80, 624) if full else (1, 1, 16, 24), generator=g)
+    down = 2 ** (len(vae_cfg.ch_mult) - 1)
+    z = torch.randn((mel.shape[0], vae_cfg.embed_dim, mel.shape[2] // down,
+                     mel.shape[3] // down), generator=g)
+    pair("AutoencoderKL2D", AutoencoderKL2D(vae_cfg),
+         lambda m, d: (m.encode_moments(mel.to(d)), m.decode(z.to(d))), 106, MOMENTS_REL_TOL,
+         rel=True)
+
+    def vq_run(m, d):
+        h = m.quant_conv(m.encoder(mel.to(d)))
+        quant, loss, idx = m.quantize(h)
+        return h, quant, m.decode(z.to(d)), loss, idx.to(torch.float64)
+
+    def vq_extra(m_dev, outs):
+        h_cpu, idx_dev, idx_cpu = outs["cpu"][0], outs[device.type][4], outs["cpu"][4]
+        ties = vq_ties(h_cpu, m_dev.quantize.embedding.weight, idx_dev.long(), idx_cpu.long())
+        loss_rel = abs(float(outs[device.type][3]) - float(outs["cpu"][3])) / abs(
+            float(outs["cpu"][3]))
+        return {"n_embed": m_dev.quantize.n_embed, "codes_used": int(idx_cpu.unique().numel()),
+                "index_check": ties, "loss_rel_diff": loss_rel,
+                "ok": ties["ties"] and loss_rel <= MOMENTS_REL_TOL}
+
+    # the pre-quantization latent, the quantized latent and a decode at
+    # MOMENTS_REL_TOL; the loss and the indices in vq_extra
+    pair("VQModel2D", VQModel2D(dataclasses.replace(vae_cfg, double_z=False),
+                                n_embed=8192 if full else 64),
+         vq_run, 107, MOMENTS_REL_TOL, rel=True, extra=vq_extra, held=3)
+
+    text_kw = {} if full else dict(vocab_size=100, dim=32, depth=1, num_heads=4)
+    tenc = TransformerTextEncoder(**text_kw)
+    ids = torch.randint(0, tenc.token_emb.num_embeddings, (8 if full else 2, 77),
+                        generator=torch.Generator().manual_seed(108))
+    pair("TransformerTextEncoder", tenc, lambda m, d: m(ids.to(d)), 109, DIT_TOL)
+
+    launches = training_counts_zero("variant_models")
+    emit({"phase": "variant_models", "models": len(rows), "launches": launches,
+          "card": card["nvidia_smi"], "seconds": time.time() - t0})
+    if fails:
+        raise AssertionError(f"variant_models: card vs CPU beyond the bars: {fails}")
+    return rows
+
+
+def ldm_variants_phase(device, full: bool, card: dict) -> list:
+    """The auxiliary LDM trainers at full width, f32 with TF32 off, random
+    weights from a seed, channels-first latents (8, 20, 312): the inpaint
+    step (ConcatDiT2MLP with 41 channels in, 20 out; c_concat = the masked
+    latent and a 624-frame mask resized to 312; context 154 x 1024), the
+    order step (ConcatOrderDiT over 77 caption tokens with orders from
+    compute_order_indices), the classifier step (a linear head over the
+    time-pooled latent, 527 classes) and the noisy-accuracy sweep at
+    log_every_t 100. Each step once on the card and the CPU with injected
+    draws and SGD lr 1: the loss and the update (`updates_agree`, L2 and
+    largest element) at TRAIN_RTOL in f32 (the teacher_train row shows an
+    eps-MSE step's f32 update reproducible to ~1e-6); the sweep's
+    accuracies equal. Then the shipped optimisers (the teacher's clip +
+    AdamW chain, the classifier's AdamW): ms per step (CUDA events, median
+    of 5), peak GB, and the f32 bound of the step's FLOP (`step_flop`).
+    0 K1 / K3 launches."""
+    import copy
+
+    from audiolcm_torch.diffusion.schedule import NoiseSchedule
+    from audiolcm_torch.models.dit import ConcatDiT2MLP
+    from audiolcm_torch.models.order_dit import ConcatOrderDiT, compute_order_indices
+    from audiolcm_torch.train import ldm_variants as V
+    from audiolcm_torch.train.teacher import TeacherConfig, init_teacher_state
+
+    t0 = time.time()
+    reset_counts()
+    cpu = torch.device("cpu")
+    on_card = device.type == "cuda"
+    schedule = NoiseSchedule.linear()
+    inp = variant_inputs(full, seed=110)
+    b = inp["x"].shape[0]
+    z_ch, t_lat = inp["x"].shape[2], inp["x"].shape[1]
+    dit_kw = ({} if full else dict(context_dim=32, hidden_size=32, depth=1, num_heads=4))
+    g = torch.Generator().manual_seed(111)
+    z = torch.randn(b, z_ch, t_lat, generator=g)
+    mask = (torch.rand(b, 1, 2 * t_lat, generator=g) > 0.5).float()
+    c_concat = V.build_inpaint_cond(torch.randn(b, z_ch, t_lat, generator=g), mask)
+    ctx154 = torch.randn(b, 2 * inp["context"].shape[1], inp["context"].shape[2], generator=g)
+    order_index = torch.from_numpy(compute_order_indices(inp["ids"], inp["orders"]))
+    n_classes = 527 if full else 11
+    targets = torch.randint(0, n_classes, (b,), generator=g)
+    draws = {"t": torch.randint(0, 1000, (b,), generator=g),
+             "noise": torch.randn(z.shape, generator=g)}
+    sgd = lambda p: torch.optim.SGD(p, lr=1.0)
+    rows, fails = [], []
+
+    def channels_first(m, x, t, *cond):
+        return m(x.transpose(1, 2), t, *cond).transpose(1, 2)
+
+    def pool_head(m, x, t):
+        return m(x.mean(-1))
+
+    cases = {
+        "inpaint": (ConcatDiT2MLP(in_channels=2 * z_ch + 1, out_channels=z_ch, **dit_kw),
+                    lambda: V.make_inpaint_step(channels_first, schedule, TeacherConfig()),
+                    (c_concat, ctx154), init_teacher_state, TeacherConfig()),
+        "order": (ConcatOrderDiT(in_channels=z_ch, **dit_kw),
+                  lambda: V.make_order_step(channels_first, schedule, TeacherConfig()),
+                  (inp["context"], order_index), init_teacher_state, TeacherConfig()),
+        "classifier": (torch.nn.Linear(z_ch, n_classes),
+                       lambda: V.make_classifier_step(pool_head, schedule,
+                                                      V.ClassifierConfig(n_classes)),
+                       (targets,), V.init_classifier_state, V.ClassifierConfig(n_classes)),
+    }
+    for seed, (kind, (model, make_step, cond, init_state, cfg)) in enumerate(cases.items()):
+        init_random_(model, torch.Generator().manual_seed(112 + seed))
+        before = {k: v.detach().double() for k, v in model.state_dict().items()}
+        out = {}
+        for dev in (device, cpu):
+            state = init_state(copy.deepcopy(model).to(dev), cfg, optimizer=sgd)
+            state, m = make_step()(state, z.to(dev), *[c.to(dev) for c in cond],
+                                   **{k: v.to(dev) for k, v in draws.items()})
+            out[dev.type] = (float(m["train/loss"]), {k: v.detach() for k, v in
+                                                      state.model.state_dict().items()})
+        (loss_dev, after_dev), (loss_cpu, after_cpu) = out[device.type], out["cpu"]
+        same = updates_agree(after_dev, after_cpu, before)
+        row = {"step": kind, "batch": b, "latent": [z_ch, t_lat], "dtype": "float32",
+               "tf32": False, "loss_card": loss_dev, "loss_cpu": loss_cpu,
+               "loss_rel_diff": abs(loss_dev - loss_cpu) / abs(loss_cpu), "rtol": TRAIN_RTOL,
+               "update_f32_card_vs_cpu": same}
+        if not (row["loss_rel_diff"] <= TRAIN_RTOL and same["update_rel_l2_diff"] <= TRAIN_RTOL
+                and same["update_max_diff_over_max_update"] <= TRAIN_RTOL):
+            fails.append(kind)
+        if on_card:  # the shipped optimisers
+            state = init_state(copy.deepcopy(model).to(device), cfg)
+            step = make_step()
+            gen = torch.Generator(device).manual_seed(113)
+            args = [z.to(device)] + [c.to(device) for c in cond]
+            run = lambda: step(state, *args, generator=gen)  # noqa: E731
+            run()
+            flop = step_flop(run)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times = timed_steps(run, 5)
+            row.update(ms_per_step=sorted(times)[2], ms_steps=times,
+                       peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                       tflop_per_step=flop / 1e12, f32_bound_ms=1e3 * flop / PEAK_F32)
+        if kind == "classifier":  # the sweep with the card's SGD-stepped head
+            heads = {}
+            noises = [torch.randn(z.shape, generator=g) for _ in range(0, 1000, 100)]
+            sweeps = {}
+            for dev in (device, cpu):
+                head = copy.deepcopy(model).to(dev)
+                head.load_state_dict({k: v.to(dev) for k, v in after_cpu.items()})
+                sweeps[dev.type] = V.noisy_accuracy_sweep(pool_head, head, z.to(dev),
+                                                          targets.to(dev), schedule,
+                                                          log_every_t=100, noises=noises)
+                heads[dev.type] = head
+            row["sweep"] = {"levels": len(sweeps["cpu"]), "card": sweeps[device.type],
+                            "equal": sweeps[device.type] == sweeps["cpu"]}
+            if on_card:
+                zd, td, hd = z.to(device), targets.to(device), heads["cuda"]
+                nd = [n.to(device) for n in noises]
+                row["sweep"]["ms"] = sorted(timed_steps(lambda: V.noisy_accuracy_sweep(
+                    pool_head, hd, zd, td, schedule, log_every_t=100, noises=nd), 5))[2]
+            if not row["sweep"]["equal"]:
+                fails.append("sweep")
+        rows.append(row)
+        emit({"phase": "ldm_variants", **row, "card": card["nvidia_smi"]})
+    launches = training_counts_zero("ldm_variants")
+    emit({"phase": "ldm_variants", "steps": len(rows), "launches": launches,
+          "card": card["nvidia_smi"], "seconds": time.time() - t0})
+    if fails:
+        raise AssertionError(f"ldm_variants: card vs CPU beyond the bars: {fails}")
+    return rows
+
+
 def _tensors(sd) -> list:
     """Every tensor of a nested state dict, in a fixed order."""
     if isinstance(sd, torch.Tensor):
@@ -2933,6 +3239,10 @@ def main(argv=None) -> int:
     eval_phase(device, full=not rehearsal, card=card)
     eval_cli_phase(device, full=not rehearsal, card=card)
     mark("eval")
+    variant_models_phase(device, full=not rehearsal, card=card)
+    mark("variant_models")
+    ldm_variants_phase(device, full=not rehearsal, card=card)
+    mark("ldm_variants")
     emit({"phase": "seconds", "total": marks[-1][1] - marks[0][1],
           "by_phase": {n: t - marks[i][1] for i, (n, t) in enumerate(marks[1:])}})
     line = kernels_line(checks, k2_checks, flash_checks, times, k2_times, flash_time, gen_row,
