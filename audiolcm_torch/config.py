@@ -4,13 +4,13 @@ An explicit registry of the reference's target strings in place of its
 reflection (`instantiate_from_config`, ldm/util.py:111-126): the
 denoisers ConcatDiT2MLP, ConcatDiT, ConcatOrderDiT(2) and TxtFlagLargeDiT,
 the 1D and the 2D AutoencoderKL, and the text conditioners
-FrozenCLAPFLANEmbedder, FrozenT5Embedder, FrozenFLANEmbedder and
-FrozenCLAPEmbedder; BigVGAN from a vocoder args.yml. The two LAION CLAP
-conditioners are not ported yet and raise KeyError. `build_from_target`
-builds a node's modules; `parse_diffusion_config` reads an LDM's
-`model.params` into constructor arguments. Modules are built on the CPU in
-float32; the caller moves them. `load_yaml` imports PyYAML only when
-called.
+FrozenCLAPFLANEmbedder, FrozenT5Embedder, FrozenFLANEmbedder,
+FrozenCLAPEmbedder and the two LAION CLAP conditioners
+(FrozenLAIONCLAPEmbedder, FrozenLAIONCLAPSetenceEmbedder); BigVGAN from a
+vocoder args.yml. `build_from_target` builds a node's modules;
+`parse_diffusion_config` reads an LDM's `model.params` into constructor
+arguments. Modules are built on the CPU in float32; the caller moves them.
+`load_yaml` imports PyYAML only when called.
 """
 
 from __future__ import annotations
@@ -109,11 +109,35 @@ def _clap_only(p: dict) -> dict:
             "single_tower": True}
 
 
-def _laion(p: dict):
-    raise KeyError("the LAION CLAP conditioners (FrozenLAIONCLAPEmbedder, "
-                   "FrozenLAIONCLAPSetenceEmbedder) are not ported yet: they need the "
-                   "HTSAT / RoBERTa towers of audiolcm_tpu/models/open_clap, the next slice "
-                   "of the port (slice 11 in ROADMAP.md)")
+@dataclasses.dataclass(frozen=True)
+class LaionSpec:
+    """A LAION CLAP conditioner's constructor arguments: the params the JAX
+    registry reads (`audiolcm_tpu/config.py:102-117`); the sentence class
+    takes weights_path and tokenizer_path only."""
+
+    sentence_cls: bool
+    kwargs: dict
+
+    def build(self):
+        """The embedder, on the CPU."""
+        from audiolcm_torch.models.open_clap.embedders import (FrozenLAIONCLAPEmbedder,
+                                                              FrozenLAIONCLAPSetenceEmbedder)
+
+        if self.sentence_cls:
+            return FrozenLAIONCLAPSetenceEmbedder(**self.kwargs, device="cpu")
+        return FrozenLAIONCLAPEmbedder(**self.kwargs, device="cpu")
+
+
+def _laion(sentence_cls: bool) -> Callable[[dict], LaionSpec]:
+    def parse(p: dict) -> LaionSpec:
+        kw = dict(weights_path=p.get("weights_path", ""),
+                  tokenizer_path=p.get("tokenizer_path", "roberta-base"))
+        if not sentence_cls:
+            kw.update(sentence=bool(p.get("sentence", False)),
+                      max_length=p.get("max_length", 77))
+        return LaionSpec(sentence_cls, kw)
+
+    return parse
 
 
 _DIT = "ldm.modules.diffusionmodules."
@@ -130,8 +154,8 @@ REGISTRY: Dict[str, Callable[[dict], Any]] = {
     _ENC + "FrozenT5Embedder": _t5_only,
     _ENC + "FrozenFLANEmbedder": _t5_only,
     _ENC + "FrozenCLAPEmbedder": _clap_only,
-    _ENC + "FrozenLAIONCLAPEmbedder": _laion,
-    _ENC + "FrozenLAIONCLAPSetenceEmbedder": _laion,
+    _ENC + "FrozenLAIONCLAPEmbedder": _laion(False),
+    _ENC + "FrozenLAIONCLAPSetenceEmbedder": _laion(True),
 }
 
 
@@ -153,10 +177,10 @@ def _towers(cond: dict) -> dict:
 
 
 def build_from_target(node: dict):
-    """A `{target, params}` node's modules: a denoiser, a VAE, or the text
-    towers (`_towers`)."""
+    """A `{target, params}` node's modules: a denoiser, a VAE, the text
+    towers (`_towers`) or a LAION CLAP embedder."""
     parsed = _parse(node)
-    if isinstance(parsed, DiTSpec):
+    if isinstance(parsed, (DiTSpec, LaionSpec)):
         return parsed.build()
     if isinstance(parsed, (VAEConfig, VAE2DConfig)):
         return _vae_cls(parsed)(parsed)
@@ -186,7 +210,7 @@ class DiffusionSystemConfig:
 
     dit: DiTSpec
     vae: Any  # VAEConfig or VAE2DConfig
-    cond: dict
+    cond: Any  # the towers' configs (dict) or a LaionSpec
     timesteps: int = 1000
     linear_start: float = 0.00085
     linear_end: float = 0.012
@@ -212,6 +236,9 @@ class DiffusionSystemConfig:
         return T5Encoder(self._tower("t5"), fuse_proj)
 
     def _tower(self, name: str):
+        if isinstance(self.cond, LaionSpec):
+            raise ValueError(f"the cond_stage_config is a LAION CLAP conditioner, which has no "
+                             f"{name} tower (build it with cond.build())")
         if self.cond[name] is None:
             raise ValueError(f"the cond_stage_config is a single-tower conditioner without "
                              f"the {name} tower")

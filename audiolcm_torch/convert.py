@@ -387,9 +387,9 @@ def vocoder_from_jax(p: dict) -> SD:
     return out
 
 
-def clap_text_from_jax(p: dict) -> SD:
-    out: SD = {}
-    bert, e = p["bert"], "base.embeddings"
+def _bert_from_jax(bert: dict, base: str, out: dict) -> None:
+    """A JAX BertEncoder (or RobertaEncoder) tree -> HF keys under `base`."""
+    e = f"{base}embeddings"
     out[f"{e}.word_embeddings.weight"] = _t(bert["word_embeddings"]["embedding"])
     out[f"{e}.position_embeddings.weight"] = _t(bert["position_embeddings"])
     out[f"{e}.token_type_embeddings.weight"] = _t(bert["token_type_embeddings"])
@@ -397,7 +397,7 @@ def clap_text_from_jax(p: dict) -> SD:
     for key, lp in bert.items():
         if not (m := re.fullmatch(r"layer_(\d+)", key)):
             continue
-        name = f"base.encoder.layer.{m.group(1)}"
+        name = f"{base}encoder.layer.{m.group(1)}"
         sa = f"{name}.attention.self"
         if "qkv" in lp:
             _split_dense(lp["qkv"], [f"{sa}.query", f"{sa}.key", f"{sa}.value"], out)
@@ -409,6 +409,13 @@ def clap_text_from_jax(p: dict) -> SD:
         _dense(lp["ff_in"], f"{name}.intermediate.dense", out)
         _dense(lp["ff_out"], f"{name}.output.dense", out)
         _norm(lp["ff_norm"], f"{name}.output.LayerNorm", out)
+    if "pooler" in bert:
+        _dense(bert["pooler"], f"{base}pooler.dense", out)
+
+
+def clap_text_from_jax(p: dict) -> SD:
+    out: SD = {}
+    _bert_from_jax(p["bert"], "base.", out)
     proj = p["projection"]
     _dense(proj["linear1"], "projection.linear1", out)
     _dense(proj["linear2"], "projection.linear2", out)
@@ -629,3 +636,164 @@ def multi_window_to_jax(sd: dict, time_lengths=(32, 64, 128), freq_length: int =
         if st:
             stats[tower] = st
     return params, stats
+
+
+# ---------------------------------------------------------------------------
+# LAION open_clap (JAX variables -> the reference CLAP layout)
+# ---------------------------------------------------------------------------
+
+
+def _bn_from_jax(p: dict, stats: dict, name: str, out: dict) -> None:
+    """flax BatchNorm scale, bias, mean, var -> weight, bias, running_mean,
+    running_var (and num_batches_tracked 0)."""
+    _norm(p, name, out)
+    out[f"{name}.running_mean"] = _t(stats["mean"])
+    out[f"{name}.running_var"] = _t(stats["var"])
+    out[f"{name}.num_batches_tracked"] = torch.tensor(0)
+
+
+def _fusion_from_jax(p: dict, stats: dict, name: str, out: dict) -> None:
+    """AFF / iAFF: each bottleneck's conv1, bn1, conv2, bn2 -> the
+    Sequential's 0, 1, 3, 4 (the global ones' pool at 0 shifts them by one).
+    iAFF's never-called global_att2, which JAX drops, gets its init."""
+    for branch, sub in p.items():
+        off = 1 if branch.startswith("global") else 0
+        b = f"{name}.{branch}"
+        _conv_any(sub["conv1"], f"{b}.{off}", out)
+        _bn_from_jax(sub["bn1"], stats[branch]["bn1"], f"{b}.{1 + off}", out)
+        _conv_any(sub["conv2"], f"{b}.{3 + off}", out)
+        _bn_from_jax(sub["bn2"], stats[branch]["bn2"], f"{b}.{4 + off}", out)
+    if "local_att2" in p:
+        from audiolcm_torch.models.open_clap.fusion import iAFF
+
+        kernel = np.asarray(p["local_att"]["conv2"]["kernel"])
+        module = iAFF(kernel.shape[-1], type="2D" if kernel.ndim == 4 else "1D")
+        for k, v in module.global_att2.state_dict().items():
+            out[f"{name}.global_att2.{k}"] = v
+
+
+def _mel_conv1d_from_jax(p: dict, st: dict, out: dict) -> None:
+    """The 1D fusion's mel conv and its BatchNorm (HTSAT and PANN)."""
+    _conv_any(p["mel_conv1d"], "audio_branch.mel_conv1d.0", out)
+    _bn_from_jax(p["mel_conv1d_bn"], st["mel_conv1d_bn"], "audio_branch.mel_conv1d.1", out)
+
+
+def _htsat_from_jax(p: dict, st: dict, out: dict) -> None:
+    a = "audio_branch"
+    _bn_from_jax(p["bn0"], st["bn0"], f"{a}.bn0", out)
+    _conv_any(p["proj"], f"{a}.patch_embed.proj", out)
+    _norm(p["patch_norm"], f"{a}.patch_embed.norm", out)
+    for key, sub in p.items():
+        if m := re.fullmatch(r"layer_(\d+)_block_(\d+)", key):
+            b = f"{a}.layers.{m.group(1)}.blocks.{m.group(2)}"
+            _norm(sub["norm1"], f"{b}.norm1", out)
+            _norm(sub["norm2"], f"{b}.norm2", out)
+            _dense(sub["fc1"], f"{b}.mlp.fc1", out)
+            _dense(sub["fc2"], f"{b}.mlp.fc2", out)
+            _dense(sub["attn"]["qkv"], f"{b}.attn.qkv", out)
+            _dense(sub["attn"]["proj"], f"{b}.attn.proj", out)
+            out[f"{b}.attn.relative_position_bias_table"] = _t(
+                sub["attn"]["relative_position_bias_table"])
+        elif m := re.fullmatch(r"downsample_(\d+)", key):
+            d = f"{a}.layers.{m.group(1)}.downsample"
+            _norm(sub["norm"], f"{d}.norm", out)
+            _dense(sub["reduction"], f"{d}.reduction", out)
+    _norm(p["norm"], f"{a}.norm", out)
+    _conv_any(p["tscam_conv"], f"{a}.tscam_conv", out)
+    if "mel_conv2d" in p:  # the 2D fusion lives in patch_embed
+        _conv_any(p["mel_conv2d"], f"{a}.patch_embed.mel_conv2d", out)
+        if "fusion_model" in p:
+            _fusion_from_jax(p["fusion_model"], st["fusion_model"],
+                             f"{a}.patch_embed.fusion_model", out)
+    if "mel_conv1d" in p:
+        _mel_conv1d_from_jax(p, st, out)
+        if "fusion_model" in p:
+            _fusion_from_jax(p["fusion_model"], st["fusion_model"], f"{a}.fusion_model", out)
+
+
+def _pann_from_jax(p: dict, st: dict, out: dict) -> None:
+    a = "audio_branch"
+    _bn_from_jax(p["bn0"], st["bn0"], f"{a}.bn0", out)
+    for key, sub in p.items():
+        if re.fullmatch(r"conv_block\d+", key):
+            for name, leaf in sub.items():
+                if name.startswith("conv"):
+                    _conv_any(leaf, f"{a}.{key}.{name}", out)
+                else:
+                    _bn_from_jax(leaf, st[key][name], f"{a}.{key}.{name}", out)
+    _dense(p["fc1"], f"{a}.fc1", out)
+    _dense(p["fc_audioset"], f"{a}.fc_audioset", out)
+    if "mel_conv1d" in p:
+        _mel_conv1d_from_jax(p, st, out)
+    if "mel_conv2d" in p:
+        _conv_any(p["mel_conv2d"], f"{a}.mel_conv2d.0", out)
+        _bn_from_jax(p["mel_conv2d_bn"], st["mel_conv2d_bn"], f"{a}.mel_conv2d.1", out)
+    if "fusion_model" in p:
+        _fusion_from_jax(p["fusion_model"], st["fusion_model"], f"{a}.fusion_model", out)
+
+
+def _bart_from_jax(p: dict, out: dict) -> None:
+    e = "text_branch.encoder"
+    out[f"{e}.embed_tokens.weight"] = _t(p["embed_tokens"]["embedding"])
+    out[f"{e}.embed_positions.weight"] = _t(p["embed_positions"])
+    _norm(p["layernorm_embedding"], f"{e}.layernorm_embedding", out)
+    n = sum(1 for k in p if re.fullmatch(r"q_\d+", k))
+    for i in range(n):
+        layer, sa = f"{e}.layers.{i}", f"{e}.layers.{i}.self_attn"
+        for jn, tn in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"),
+                       ("attn_out", "out_proj")):
+            _dense(p[f"{jn}_{i}"], f"{sa}.{tn}", out)
+        for jn in ("self_attn_layer_norm", "final_layer_norm"):
+            _norm(p[f"{jn}_{i}"], f"{layer}.{jn}", out)
+        _dense(p[f"fc1_{i}"], f"{layer}.fc1", out)
+        _dense(p[f"fc2_{i}"], f"{layer}.fc2", out)
+
+
+def _clip_text_from_jax(p: dict, out: dict) -> None:
+    t = "text_branch"
+    out[f"{t}.token_embedding.weight"] = _t(p["token_embedding"]["embedding"])
+    out[f"{t}.positional_embedding"] = _t(p["positional_embedding"])
+    _norm(p["ln_final"], f"{t}.ln_final", out)
+    n = sum(1 for k in p if re.fullmatch(r"ln_1_\d+", k))
+    for i in range(n):
+        b = f"{t}.resblocks.{i}"
+        _norm(p[f"ln_1_{i}"], f"{b}.ln_1", out)
+        _norm(p[f"ln_2_{i}"], f"{b}.ln_2", out)
+        out[f"{b}.attn.in_proj_weight"] = _t(p[f"attn_in_{i}"]["kernel"]).T.contiguous()
+        out[f"{b}.attn.in_proj_bias"] = _t(p[f"attn_in_{i}"]["bias"])
+        _dense(p[f"attn_out_{i}"], f"{b}.attn.out_proj", out)
+        _dense(p[f"mlp_fc_{i}"], f"{b}.mlp.c_fc", out)
+        _dense(p[f"mlp_proj_{i}"], f"{b}.mlp.c_proj", out)
+
+
+def open_clap_from_jax(variables: dict, cfg) -> SD:
+    """JAX OpenClap variables {"params", "batch_stats"} (numpy leaves) -> the
+    reference CLAP state dict the port's `models/open_clap.OpenClap` loads:
+    the inverse of `audiolcm_tpu/models/open_clap/convert.py:convert_open_clap`
+    for every text branch of `cfg` (the port's OpenClapConfig) and the HTSAT
+    or PANN tower, BatchNorm running statistics included. Subtrees absent
+    from `variables` (the audio side of a text-only init) are left out."""
+    from audiolcm_torch.models.open_clap.htsat import HTSATConfig
+
+    p, st = variables["params"], variables.get("batch_stats", {})
+    out: SD = {k: _t(p[k]) for k in ("logit_scale_a", "logit_scale_t") if k in p}
+    for name in ("text_projection", "audio_projection"):
+        if name in p:
+            _dense(p[name]["linear1"], f"{name}.0", out)
+            _dense(p[name]["linear2"], f"{name}.2", out)
+    for name in ("text_transform", "audio_transform"):
+        if name in p:
+            _dense(p[name]["linear_0"], f"{name}.sequential.0", out)
+            _dense(p[name]["linear_1"], f"{name}.sequential.3", out)
+    text = p["text_branch"]
+    kind = cfg.text_model_type
+    if kind in ("roberta", "bert"):
+        _bert_from_jax(text, "text_branch.", out)
+    elif kind == "bart":
+        _bart_from_jax(text, out)
+    else:
+        _clip_text_from_jax(text, out)
+    if "audio_branch" in p:
+        audio = _htsat_from_jax if isinstance(cfg.audio, HTSATConfig) else _pann_from_jax
+        audio(p["audio_branch"], st.get("audio_branch", {}), out)
+    return out

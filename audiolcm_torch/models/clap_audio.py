@@ -57,7 +57,8 @@ def logmel_torchlibrosa(wav: torch.Tensor, cfg: ClapAudioConfig) -> torch.Tensor
     return 10.0 * torch.log10(torch.clamp_min(mel, cfg.amin))
 
 
-def _bn_eval(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
+def bn_eval(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor) -> torch.Tensor:
+    """BatchNorm over dim 1 with its running statistics, in any mode."""
     return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias, False, 0.0,
                         bn.eps)
 
@@ -71,8 +72,8 @@ class ConvBlock(nn.Module):
         self.bn2 = nn.BatchNorm2d(c_out)
 
     def forward(self, x: torch.Tensor, pool: int = 2) -> torch.Tensor:
-        x = F.relu(_bn_eval(self.bn1, self.conv1(x)))
-        x = F.relu(_bn_eval(self.bn2, self.conv2(x)))
+        x = F.relu(bn_eval(self.bn1, self.conv1(x)))
+        x = F.relu(bn_eval(self.bn2, self.conv2(x)))
         return F.avg_pool2d(x, pool) if pool > 1 else x
 
 
@@ -89,7 +90,7 @@ class Cnn14(nn.Module):
 
     def forward(self, wav: torch.Tensor) -> torch.Tensor:
         x = logmel_torchlibrosa(wav, self.config)[:, None]  # (B, 1, T, mel)
-        x = _bn_eval(self.bn0, x.transpose(1, 3)).transpose(1, 3)  # bn0 over the mel axis
+        x = bn_eval(self.bn0, x.transpose(1, 3)).transpose(1, 3)  # bn0 over the mel axis
         for i in range(len(WIDTHS)):
             x = getattr(self, f"conv_block{i + 1}")(x, pool=2 if i < len(WIDTHS) - 1 else 1)
         x = torch.mean(x, dim=3)  # over mel -> (B, C, T')

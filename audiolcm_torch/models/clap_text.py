@@ -3,7 +3,8 @@
 Reference `CLAP/clap.py` TextEncoder (HF bert-base-uncased + Projection) as
 FrozenCLAPFLANEmbedder uses it: the projection applies to the full
 last_hidden_state (77 tokens) and no attention mask is passed, so padding
-tokens are attended. erf GELU; LayerNorm eps 1e-12 in BERT, 1e-5 in the
+tokens are attended. Other callers (the LAION CLAP's text towers) pass an
+`attention_mask`, which becomes a -1e9 bias on the padded keys' logits. erf GELU; LayerNorm eps 1e-12 in BERT, 1e-5 in the
 projection. Parameters use the HF BertModel key layout under `base.`.
 
 fuse_proj=True runs Q/K/V as one matmul (`attention.self.qkv`; see
@@ -13,12 +14,13 @@ fuse_proj=True runs Q/K/V as one matmul (`attention.self.qkv`; see
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from audiolcm_torch.nn.attention import dot_product_attention, fuse_qkv_state_dict
+from audiolcm_torch.nn.attention import dot_product_attention, fuse_qkv_state_dict, padding_bias
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,13 +78,14 @@ class BertLayer(nn.Module):
         self.intermediate = _Intermediate(cfg)
         self.output = _DenseNorm(cfg.intermediate_size, cfg.hidden_size, cfg.layer_norm_eps)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """mask_bias: `padding_bias` of the attention mask, or None."""
         cfg = self.cfg
         b, t, _ = x.shape
         hd = cfg.hidden_size // cfg.num_heads
         split = lambda a: a.reshape(b, t, cfg.num_heads, hd).transpose(1, 2)
         q, k, v = self.attention.self(x)
-        attn = dot_product_attention(split(q), split(k), split(v), hd**-0.5)
+        attn = dot_product_attention(split(q), split(k), split(v), hd**-0.5, mask_bias)
         attn = attn.transpose(1, 2).reshape(b, t, cfg.hidden_size)
         ao = self.attention.output
         x = ao.LayerNorm(x + ao.dense(attn))
@@ -111,17 +114,20 @@ class _Layers(nn.Module):
 
 
 class BertEncoder(nn.Module):
-    """input_ids (B, L) -> last_hidden_state (B, L, hidden); no attention mask."""
+    """input_ids (B, L) [+ attention_mask (B, L), 1 = token, 0 = padding]
+    -> last_hidden_state (B, L, hidden)."""
 
     def __init__(self, config: BertConfig = BertConfig(), fuse_proj: bool = False):
         super().__init__()
         self.embeddings = _Embeddings(config)
         self.encoder = _Layers(config, fuse_proj)
 
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+    def forward(self, input_ids: torch.Tensor,
+                attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         h = self.embeddings(input_ids)
+        mask_bias = padding_bias(attention_mask)
         for layer in self.encoder.layer:
-            h = layer(h)
+            h = layer(h, mask_bias)
         return h
 
 
@@ -149,8 +155,9 @@ class ClapTextEncoder(nn.Module):
         self.base = BertEncoder(config, fuse_proj)
         self.projection = Projection(config.hidden_size, d_proj)
 
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
-        return self.projection(self.base(input_ids))
+    def forward(self, input_ids: torch.Tensor,
+                attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.projection(self.base(input_ids, attention_mask))
 
 
 def fuse_bert_state_dict(sd: dict) -> dict:

@@ -3,7 +3,9 @@
 HF `T5EncoderModel` semantics for google/t5-v1_1-large: RMSNorm eps 1e-6,
 gated-GELU feed-forward with the tanh approximation, no attention-logit
 scaling, relative position bias computed once (block 0) and shared by all
-layers, no attention mask. Parameters use the HF key layout.
+layers. FrozenCLAPFLANEmbedder passes no attention mask; a given
+`attention_mask` becomes a -1e9 bias on the padded keys' logits. Parameters
+use the HF key layout.
 
 fuse_proj=True runs Q/K/V as one matmul (`SelfAttention.qkv`) and wi_0/wi_1
 as one (`DenseReluDense.wi`); see `fuse_t5_state_dict`.
@@ -13,13 +15,14 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from audiolcm_torch.nn.attention import fuse_qkv_state_dict
+from audiolcm_torch.nn.attention import fuse_qkv_state_dict, padding_bias
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,7 +132,8 @@ class T5Layer(nn.Module):
         self.cfg = cfg
         self.layer = nn.ModuleList([_AttnLayer(cfg, fuse_proj, has_bias), _FFLayer(cfg, fuse_proj)])
 
-    def forward(self, x: torch.Tensor, pos_bias: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, pos_bias: torch.Tensor,
+                mask_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg = self.cfg
         b, t, _ = x.shape
         attn = self.layer[0].SelfAttention
@@ -140,6 +144,8 @@ class T5Layer(nn.Module):
         else:
             q, k, v = split(attn.q(h)), split(attn.k(h)), split(attn.v(h))
         logits = torch.matmul(q, k.transpose(-1, -2)).to(torch.float32) + pos_bias
+        if mask_bias is not None:
+            logits = logits + mask_bias
         weights = torch.softmax(logits, dim=-1).to(v.dtype)
         out = torch.matmul(weights, v).transpose(1, 2).reshape(b, t, -1)
         x = x + attn.o(out)
@@ -156,7 +162,8 @@ class _Stack(nn.Module):
 
 
 class T5Encoder(nn.Module):
-    """input_ids (B, L) -> last_hidden_state (B, L, d_model)."""
+    """input_ids (B, L) [+ attention_mask (B, L), 1 = token, 0 = padding]
+    -> last_hidden_state (B, L, d_model)."""
 
     def __init__(self, config: T5Config = T5Config(), fuse_proj: bool = False):
         super().__init__()
@@ -164,7 +171,8 @@ class T5Encoder(nn.Module):
         self.shared = nn.Embedding(config.vocab_size, config.d_model)
         self.encoder = _Stack(config, fuse_proj)
 
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+    def forward(self, input_ids: torch.Tensor,
+                attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg = self.config
         t = input_ids.shape[1]
         h = self.shared(input_ids)
@@ -172,8 +180,9 @@ class T5Encoder(nn.Module):
         buckets = bucket_table(t, t, cfg.relative_attention_num_buckets,
                                cfg.relative_attention_max_distance, rel.device)
         pos_bias = rel[buckets].permute(2, 0, 1)[None].to(torch.float32)
+        mask_bias = padding_bias(attention_mask)
         for block in self.encoder.block:
-            h = block(h, pos_bias)
+            h = block(h, pos_bias, mask_bias)
         return self.encoder.final_layer_norm(h)
 
 

@@ -7,6 +7,8 @@ keys in float32, scale = head_dim**-0.5.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
@@ -14,11 +16,23 @@ from audiolcm_torch.nn.flash_attention import flash_attention
 
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          scale: float) -> torch.Tensor:
-    """q: (B, H, Tq, d), k/v: (B, H, Tk, d) -> (B, H, Tq, d); f32 softmax."""
+                          scale: float, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q: (B, H, Tq, d), k/v: (B, H, Tk, d) -> (B, H, Tq, d); f32 softmax.
+    `bias` (f32, broadcast to (B, H, Tq, Tk)) is added to the scaled logits,
+    as a padding mask's `padding_bias`."""
     logits = torch.matmul(q, k.transpose(-1, -2)).to(torch.float32) * scale
+    if bias is not None:
+        logits = logits + bias
     weights = torch.softmax(logits, dim=-1).to(v.dtype)
     return torch.matmul(weights, v)
+
+
+def padding_bias(attention_mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """A (B, Tk) 1/0 attention mask -> the (B, 1, 1, Tk) f32 logit bias, -1e9
+    on padding (the JAX towers' `(1 - mask) * -1e9`); None stays None."""
+    if attention_mask is None:
+        return None
+    return (1.0 - attention_mask[:, None, None, :].to(torch.float32)) * -1e9
 
 
 class MultiHeadSelfAttention(nn.Module):

@@ -84,6 +84,13 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                 (ldm_variants: the inpaint, order and classifier steps card
                 vs CPU, ms per step, peak GB and f32 bound; the noisy
                 accuracy sweep); 0 K1 / K3 launches
+ 15. open_clap— the LAION CLAP at full width, each case card vs CPU with
+                its ms, FLOP and share of the f32 bound: both LAION
+                embedders from their registry nodes (per-token (8, 77)
+                and sentence (8, 512) encodes with padded masks), the
+                HTSAT-tiny aff_2d tower on 8 ten-second waveforms and on a
+                mel_fusion stack (the 6-tuple forward), PANN-14's audio
+                embedding; 0 K1 / K3 launches
 then the seconds of each phase, the kernels line and, last, the device
 line.
 """
@@ -128,6 +135,8 @@ FOLD_F32_TOL = 2e-5  # f32 batch-1 waveform, fold 8 vs 0: the f32 module bar
 FOLD_BF16_RATIO = 1.05
 TRAIN_RTOL = 1e-4  # f32 training step: loss card vs CPU; the update's floor (L2 vs f64)
 VAE_SGD_LR = 1e-6  # the VAE GAN parity step's SGD rate: updates ~1e-2 of O(0.05) weights
+TEXT_TOL = 1e-4  # f32 LAION text encodes, card vs CPU: 12 roberta layers summed in another order
+AUDIO_REL_TOL = 1e-4  # f32 LAION audio towers, card vs CPU, relative to each output's scale
 
 
 def emit(obj) -> None:
@@ -3066,6 +3075,173 @@ def ldm_variants_phase(device, full: bool, card: dict) -> list:
     return rows
 
 
+def open_clap_inputs(full: bool, seed: int) -> dict:
+    """The LAION CLAP's inputs: roberta ids (8, 77) and (8, 512) as its
+    tokenizer pads them (<s> 0, text, </s> 2, then pad 1 to a ragged
+    length; one row full) with their masks; 8 ten-second 48 kHz waveforms
+    (480 000 samples); a mel_fusion stack (8, 4, 1001, 64) with `longer`
+    mixed. The rehearsal: tiny widths, batch 2."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    g = torch.Generator().manual_seed(seed)
+    b, vocab, samples, frames, mel = (8, 50265, 480000, 1001, 64) if full else (2, 60, 8000,
+                                                                               101, 16)
+
+    def roberta_ids(t):
+        ids = rng.integers(3, vocab, (b, t))
+        ids[:, 0] = 0
+        for row in range(b):
+            n = t if row == 0 else int(rng.integers(3, t))
+            ids[row, n - 1], ids[row, n:] = 2, 1
+        ids = torch.from_numpy(ids)
+        return ids, (ids != 1).long()
+
+    tokens, sentence = roberta_ids(77), roberta_ids(512)
+    return {"tokens": tokens, "sentence": sentence,
+            "waveform": 0.1 * torch.randn(b, samples, generator=g),
+            "mel_fusion": torch.randn(b, 4, frames, mel, generator=g),
+            "longer": torch.arange(b) % 2 == 0}
+
+
+def open_clap_phase(device, full: bool, card: dict) -> list:
+    """The LAION CLAP at full width, random weights from a seed (BatchNorm
+    running statistics random too), f32 with TF32 off, each case on the
+    card against the CPU on the same inputs, ms per call (CUDA events,
+    median of 5), FLOP (`step_flop`) and the share of the 67 TFLOP/s f32
+    bound: `laion_tokens` (FrozenLAIONCLAPEmbedder built from its registry
+    node: HTSAT-tiny aff_2d + roberta-base, the audio side dropped;
+    per-token encode of (8, 77) ids with ragged padded tails, max abs <=
+    TEXT_TOL), `laion_sentence` (FrozenLAIONCLAPSetenceEmbedder on (8, 512)
+    ids: unit vectors, TEXT_TOL), `htsat_waveform` (OpenClap HTSAT-tiny
+    aff_2d: the audio embedding of 8 x 480 000 samples, the tower's outputs
+    at AUDIO_REL_TOL of scale), `htsat_fusion` (its 6-tuple forward on
+    mel_fusion (8, 4, 1001, 64) with `longer` mixed and (8, 77) ids) and
+    `pann14` (PANN-14's audio embedding of the 8 waveforms). 0 K1 / K3
+    launches. The rehearsal: tiny widths through a patched create_model."""
+    import contextlib
+    import copy
+    from unittest import mock
+
+    from audiolcm_torch import config as C
+    from audiolcm_torch.models.open_clap import embedders as E
+    from audiolcm_torch.models.open_clap import factory, htsat, model as M, pann, text_towers
+
+    t0 = time.time()
+    reset_counts()
+    cpu = torch.device("cpu")
+    on_card = device.type == "cuda"
+    inp = open_clap_inputs(full, seed=120)
+    rows, fails = [], []
+    if full:
+        clap_cfg = lambda audio, fusion: factory.build_config(audio, "roberta", fusion != "None",
+                                                              fusion)
+        patched = contextlib.nullcontext()
+    else:  # tiny towers in place of the factory's published ones
+        def clap_cfg(audio, fusion):
+            kw = dict(enable_fusion=fusion != "None", fusion_type=fusion)
+            a = (htsat.HTSATConfig(spec_size=64, embed_dim=16, depths=(2, 2, 2),
+                                   num_heads=(2, 2, 2), window_size=4, num_classes=10,
+                                   mel_bins=16, sample_rate=8000, hop_size=80,
+                                   window_size_stft=256, **kw)
+                 if audio.startswith("HTSAT") else
+                 pann.PannConfig(model_name="Cnn6", sample_rate=8000, window_size=256,
+                                 hop_size=80, **kw))
+            return M.OpenClapConfig(embed_dim=64 if audio.startswith("HTSAT") else 512, audio=a,
+                                    joint_embed_shape=24, text_config=text_towers.RobertaConfig(
+                                        vocab_size=60, hidden_size=16, num_layers=1, num_heads=2,
+                                        intermediate_size=32))
+
+        patched = mock.patch.object(E, "create_model", lambda a, t, w="", **kw: (
+            M.OpenClap(clap_cfg(a, kw["fusion_type"])), None))
+
+    def randomize(module, seed):
+        gen = torch.Generator().manual_seed(seed)
+        init_random_(module, gen)
+        with torch.no_grad():
+            for m in module.modules():
+                if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+                    m.running_mean.normal_(0.0, 0.1, generator=gen)
+                    m.running_var.uniform_(0.5, 1.5, generator=gen)
+        return module.eval().requires_grad_(False)
+
+    def case(name, module, run, tol, rel, extra=None):
+        """run(module, dev) -> outputs (a tensor or a tuple); the card's
+        against the CPU's (max abs, or relative to each output's scale),
+        ms, FLOP and the share of the f32 bound."""
+        outs = {}
+        for dev in (device, cpu):
+            m = module if dev == cpu else copy.deepcopy(module).to(dev)
+            with torch.inference_mode():
+                outs[dev.type] = run(m, dev)
+            if dev == device:
+                m_dev = m
+        got = outs[device.type] if isinstance(outs[device.type], tuple) else (outs[device.type],)
+        want = outs["cpu"] if isinstance(outs["cpu"], tuple) else (outs["cpu"],)
+        errs = [rel_to_scale(a, b) if rel else float((a.double().cpu() - b.double()).abs().max())
+                for a, b in zip(got, want)]
+        row = {"case": name, "shape": list(want[0].shape),
+               ("max_rel_err" if rel else "max_abs_err"): max(errs), "tol": tol,
+               "max_abs_out": float(want[0].abs().max()),
+               "params_m": sum(p.numel() for p in module.parameters()) / 1e6}
+        if on_card:
+            fn = lambda: run(m_dev, device)  # noqa: E731
+            with torch.no_grad():  # inference mode bypasses step_flop's dispatch mode
+                flop = step_flop(fn)
+            with torch.inference_mode():
+                fn()
+                ms = sorted(timed_steps(fn, 5))[2]
+            row.update(ms=ms, tflop=flop / 1e12, f32_bound_ms=1e3 * flop / PEAK_F32,
+                       share_of_f32_bound=1e3 * flop / PEAK_F32 / ms)
+        else:
+            row.update(ms="not measured")
+        row.update(extra(outs) if extra else {})
+        ok = (max(errs) <= tol and all(bool(torch.isfinite(a).all()) for a in got)
+              and row.get("ok", True))
+        if not ok:
+            fails.append(name)
+        rows.append(row)
+        emit({"phase": "open_clap", **row, "card": card["nvidia_smi"]})
+
+    on = lambda dev, *xs: [x.to(dev) for x in xs]  # noqa: E731
+    enc = "ldm.modules.encoders.modules."
+    with patched:
+        tokens = randomize(C.build_from_target({"target": enc + "FrozenLAIONCLAPEmbedder",
+                                                "params": {}}), 121)
+        sentence = randomize(C.build_from_target(
+            {"target": enc + "FrozenLAIONCLAPSetenceEmbedder", "params": {}}), 122)
+    unit = lambda outs: {  # noqa: E731
+        "max_norm_dev_from_1": float((outs["cpu"].norm(dim=-1) - 1).abs().max()),
+        "ok": bool((outs["cpu"].norm(dim=-1) - 1).abs().max() <= 1e-5)}
+    case("laion_tokens", tokens, lambda m, d: m.encode_ids(*on(d, *inp["tokens"])),
+         TEXT_TOL, rel=False)
+    case("laion_sentence", sentence, lambda m, d: m.encode_ids(*on(d, *inp["sentence"])),
+         TEXT_TOL, rel=False, extra=unit)
+
+    def audio(m, d):
+        """The unit audio embedding and the tower's outputs, one tower run."""
+        out = m.encode_audio(inp["waveform"].to(d))
+        z = m.audio_projection(out["embedding"])
+        return (z / z.norm(dim=-1, keepdim=True), *out.values())
+
+    clap = randomize(M.OpenClap(clap_cfg("HTSAT-tiny", "aff_2d")), 123)
+    case("htsat_waveform", clap, audio, AUDIO_REL_TOL, rel=True)
+    case("htsat_fusion", clap, lambda m, d: m(
+        mel_fusion=inp["mel_fusion"].to(d), longer=inp["longer"].to(d),
+        input_ids=inp["tokens"][0].to(d), attention_mask=inp["tokens"][1].to(d)),
+        AUDIO_REL_TOL, rel=True)
+    del clap
+    pann14 = randomize(M.OpenClap(clap_cfg("PANN-14", "None")), 124)
+    case("pann14", pann14, audio, AUDIO_REL_TOL, rel=True)
+
+    launches = training_counts_zero("open_clap")
+    emit({"phase": "open_clap", "cases": len(rows), "launches": launches,
+          "card": card["nvidia_smi"], "seconds": time.time() - t0})
+    if fails:
+        raise AssertionError(f"open_clap: card vs CPU beyond the bars: {fails}")
+    return rows
+
+
 def _tensors(sd) -> list:
     """Every tensor of a nested state dict, in a fixed order."""
     if isinstance(sd, torch.Tensor):
@@ -3243,6 +3419,8 @@ def main(argv=None) -> int:
     mark("variant_models")
     ldm_variants_phase(device, full=not rehearsal, card=card)
     mark("ldm_variants")
+    open_clap_phase(device, full=not rehearsal, card=card)
+    mark("open_clap")
     emit({"phase": "seconds", "total": marks[-1][1] - marks[0][1],
           "by_phase": {n: t - marks[i][1] for i, (n, t) in enumerate(marks[1:])}})
     line = kernels_line(checks, k2_checks, flash_checks, times, k2_times, flash_time, gen_row,
