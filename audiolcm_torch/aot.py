@@ -19,10 +19,11 @@ counterpart here.
 
 from __future__ import annotations
 
-import time
 from typing import Optional
 
 import torch
+
+from audiolcm_torch import obs
 
 
 def graph_key(clap_ids, t5_ids, latent_len: int) -> tuple:
@@ -53,44 +54,50 @@ class CapturedGenerate:
     may happen inside a capture. K1's weight packing
     (`amp_stage.pack_stage_params_mma`) stays inside the capture: its
     buffers come from the graph's pool and the packing replays with the
-    graph. The Python launch counters count at capture, not at replay.
-    `capture_s` is the seconds of the warm-up and the capture, `pool_bytes`
-    the bytes the graph's memory pool holds after it. The id buffers are
-    int64, what the port's tokenizers return.
+    graph. The recorder (`obs`) holds what the capture recorded (`tally`):
+    the kernel launches, which each replay adds to the launch counters, and
+    the stages' device timestamps, which each replay writes anew.
+    `capture_s` is the seconds of the warm-up and the capture (the
+    recorder's `capture` span), `pool_bytes` the bytes the graph's memory
+    pool holds after it. The id buffers are int64, what the port's
+    tokenizers return.
     """
 
     def __init__(self, pipeline, batch: int, latent_len: int, tok_len: int = 77, pool=None):
-        t0 = time.perf_counter()
         dev = pipeline.device
         if dev.type != "cuda":
             raise ValueError("a CUDA graph needs a CUDA device; this pipeline runs on "
                              f"{dev} (build it with device='cuda')")
-        self.pipeline, self.latent_len = pipeline, latent_len
-        self.clap_ids = torch.zeros((batch, tok_len), dtype=torch.int64, device=dev)
-        self.t5_ids = torch.zeros((batch, tok_len), dtype=torch.int64, device=dev)
-        self.shape = (batch, latent_len, pipeline.modules.dit.in_channels)
-        n_noise = max(pipeline.lcm_config.num_inference_steps - 1, 0)
-        self.x_T = torch.zeros(self.shape, device=dev)
-        self.noise = torch.zeros((n_noise,) + self.shape, device=dev)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            self._run()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        torch.cuda.synchronize(dev)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, pool=pool):
-            self.wav, self.mel = self._run()
-        self.capture_s = time.perf_counter() - t0
+        with obs.span("capture") as span:
+            self.pipeline, self.latent_len = pipeline, latent_len
+            self.clap_ids = torch.zeros((batch, tok_len), dtype=torch.int64, device=dev)
+            self.t5_ids = torch.zeros((batch, tok_len), dtype=torch.int64, device=dev)
+            self.shape = (batch, latent_len, pipeline.modules.dit.in_channels)
+            n_noise = max(pipeline.lcm_config.num_inference_steps - 1, 0)
+            self.x_T = torch.zeros(self.shape, device=dev)
+            self.noise = torch.zeros((n_noise,) + self.shape, device=dev)
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                self._run()
+            torch.cuda.current_stream(dev).wait_stream(side)
+            torch.cuda.synchronize(dev)
+            self.graph = torch.cuda.CUDAGraph()
+            with obs.capture(dev) as self.tally, torch.cuda.graph(self.graph, pool=pool):
+                self.wav, self.mel = self._run()
+        self.capture_s = span.seconds
         self.pool_bytes = pool_bytes(self.graph.pool())
 
     @property
     def key(self) -> tuple:
         return graph_key(self.clap_ids, self.t5_ids, self.latent_len)
 
+    @torch.inference_mode()
     def _run(self):
-        return self.pipeline.generate(self.clap_ids, self.t5_ids, self.latent_len,
-                                      x_T=self.x_T, noise=self.noise)
+        """The eager generate on the buffers, outside any request."""
+        p = self.pipeline
+        return p.generate_from_context(p.encode_text_ids(self.clap_ids, self.t5_ids),
+                                       self.latent_len, x_T=self.x_T, noise=self.noise)
 
     def replay(self, clap_ids, t5_ids, generator: Optional[torch.Generator]):
         """-> (wav, mel) of these ids, both f32 clones of the graph's outputs."""
@@ -100,7 +107,8 @@ class CapturedGenerate:
         self.x_T.copy_(torch.randn(self.shape, generator=generator, device=dev))
         for i in range(self.noise.shape[0]):
             self.noise[i].copy_(torch.randn(self.shape, generator=generator, device=dev))
-        self.graph.replay()
+        with obs.launch(self.tally):
+            self.graph.replay()
         return self.wav.clone(), self.mel.clone()
 
 

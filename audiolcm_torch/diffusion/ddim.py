@@ -24,6 +24,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from audiolcm_torch import obs
 from audiolcm_torch.diffusion.schedule import NoiseSchedule
 
 
@@ -131,11 +132,12 @@ def ddim_sample(denoise_fn: Callable[[torch.Tensor, torch.Tensor, torch.Tensor],
     step = lambda drawn, i: None if drawn is None else drawn[i]
     img = draw(x_T, shape, generator, device)
     for i, (t, c) in enumerate(descending_steps(schedule, config)):
-        t_full = torch.full((batch,), t, dtype=torch.int32, device=device)
-        if mask is not None:
-            z = draw(step(mask_noise, i), shape, generator, device)
-            img = schedule.q_sample(x0, t_full, z) * mask + (1.0 - mask) * img
-        e_t = eps_fn(img, t_full)
-        z = draw(step(noise, i), shape, generator, device) if c.sigma != 0.0 else None
-        img = x_prev_from(img, e_t, c, config.temperature, z)
+        with obs.span("ddim.step"):  # the host's issue of the step; no sync
+            t_full = torch.full((batch,), t, dtype=torch.int32, device=device)
+            if mask is not None:
+                z = draw(step(mask_noise, i), shape, generator, device)
+                img = schedule.q_sample(x0, t_full, z) * mask + (1.0 - mask) * img
+            e_t = eps_fn(img, t_full)
+            z = draw(step(noise, i), shape, generator, device) if c.sigma != 0.0 else None
+            img = x_prev_from(img, e_t, c, config.temperature, z)
     return img

@@ -34,6 +34,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from audiolcm_torch import obs
 from audiolcm_torch.nn.amp_stage import fused_amp_stage, route_takes, stage_radius
 from audiolcm_torch.nn.fold import fold_legal, fold_time, stage_fold_halo, unfold_time
 from audiolcm_torch.nn.int8_conv import int8_conv1d_cl
@@ -203,33 +204,35 @@ class BigVGAN(nn.Module):
         x = self.conv_pre(mel.transpose(1, 2))
         for i, (u, k) in enumerate(zip(cfg.upsample_rates, cfg.upsample_kernel_sizes)):
             ch = cfg.upsample_initial_channel // 2 ** (i + 1)
-            blocks = self.resblocks[i * nk:(i + 1) * nk]
-            if self._fused(ch, x.dtype):
-                sp = [blk.stage_params(x.dtype) for blk in blocks]
-                x = fused_amp_stage(
-                    self.ups[i][0](x).transpose(1, 2), sp, tuple(cfg.resblock_kernel_sizes),
-                    tuple(cfg.resblock_dilation_sizes[0]), fast=cfg.fast_snake,
-                    accum=self.pallas_stage_accum, conv=self.pallas_stage_conv,
-                ).transpose(1, 2)
-                continue
-            folded = False
-            if fold >= 2 and x.shape[0] == 1 and cfg.resblock == "1":
-                halo = stage_fold_halo(u, k, cfg.resblock_kernel_sizes,
-                                       cfg.resblock_dilation_sizes)
-                if fold_legal(x.shape[-1], fold, halo):
-                    seg_len = x.shape[-1] // fold
-                    x = fold_time(x, fold, halo)
-                    folded = True
-            x = self.ups[i][0](x)
-            polyphase = cfg.resblock == "1" and ch <= self.cf_max_channels
-            int8 = cfg.resblock == "1" and not polyphase and 0 < self.int8_min_channels <= ch
-            acc = None
-            for blk in blocks:
-                h = blk(x, polyphase, int8) if int8 else blk(x, polyphase)
-                acc = h if acc is None else acc + h
-            x = acc / nk
-            if folded:
-                x = unfold_time(x, fold, halo * u, seg_len * u)
+            fused = self._fused(ch, x.dtype)
+            with obs.stage(f"vocoder.stage{i}", x.device, C=ch, fused=fused):
+                blocks = self.resblocks[i * nk:(i + 1) * nk]
+                if fused:
+                    sp = [blk.stage_params(x.dtype) for blk in blocks]
+                    x = fused_amp_stage(
+                        self.ups[i][0](x).transpose(1, 2), sp, tuple(cfg.resblock_kernel_sizes),
+                        tuple(cfg.resblock_dilation_sizes[0]), fast=cfg.fast_snake,
+                        accum=self.pallas_stage_accum, conv=self.pallas_stage_conv,
+                    ).transpose(1, 2)
+                    continue
+                folded = False
+                if fold >= 2 and x.shape[0] == 1 and cfg.resblock == "1":
+                    halo = stage_fold_halo(u, k, cfg.resblock_kernel_sizes,
+                                           cfg.resblock_dilation_sizes)
+                    if fold_legal(x.shape[-1], fold, halo):
+                        seg_len = x.shape[-1] // fold
+                        x = fold_time(x, fold, halo)
+                        folded = True
+                x = self.ups[i][0](x)
+                polyphase = cfg.resblock == "1" and ch <= self.cf_max_channels
+                int8 = cfg.resblock == "1" and not polyphase and 0 < self.int8_min_channels <= ch
+                acc = None
+                for blk in blocks:
+                    h = blk(x, polyphase, int8) if int8 else blk(x, polyphase)
+                    acc = h if acc is None else acc + h
+                x = acc / nk
+                if folded:
+                    x = unfold_time(x, fold, halo * u, seg_len * u)
         polyphase = cfg.resblock == "1" and x.shape[1] <= self.cf_max_channels
         h = self.conv_post(self.activation_post(x, polyphase))
         return torch.tanh(h)[:, 0, :]

@@ -33,11 +33,9 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from audiolcm_torch import obs
 from audiolcm_torch.nn.amp_stage import R_ACT, valid_alias_free_snake_cl
 from audiolcm_torch.nn.resample import alias_free_taps
-
-# Kernel launches since the last reset (chip_smoke sets it to 0 around a run).
-LAUNCHES = 0
 
 ACT_CG = 8  # channels per thread block, one warp each; these must match csrc/act_chain.cu
 RUN = 16  # samples per lane
@@ -138,7 +136,6 @@ def act_chain(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor, n_rep: i
     On a CUDA tensor this launches the sm_90a kernel once, at the time tile
     `pick_tile(n_rep)`, or raises; on a CPU tensor it runs the plain
     version. n_rep is at most MAX_NREP on either device."""
-    global LAUNCHES
     if x.dim() != 3:
         raise ValueError(f"x must be (B, T, C), got shape {tuple(x.shape)}")
     c = x.shape[-1]
@@ -164,5 +161,5 @@ def act_chain(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor, n_rep: i
             margin(n_rep), n_rep, int(fast), int(x.dtype == torch.bfloat16), _taps(), stream)
     if rc != 0:
         raise RuntimeError(f"act_chain kernel launch failed: CUDA error {rc}")
-    LAUNCHES += 1
+    obs.count("act_chain")
     return out

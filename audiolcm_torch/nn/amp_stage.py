@@ -41,18 +41,10 @@ from typing import List, Sequence
 import torch
 import torch.nn.functional as F
 
+from audiolcm_torch import obs
 from audiolcm_torch.nn.resample import correlate, alias_free_taps
 from audiolcm_torch.nn.resample_cf import alias_free_snake_cf, conv1d_cf
 from audiolcm_torch.nn.snake import snake_binv
-
-# Kernel launches since the last reset (chip_smoke sets them to 0 around a
-# run): by fused_amp_stage (K1), fused_amp_stage_tc (K2a), fused_amp_stage_cl
-# (K2b), on either route; and every launch of the tensor-core kernel, by any
-# of the three.
-LAUNCHES = 0
-LAUNCHES_TC = 0
-LAUNCHES_CL = 0
-LAUNCHES_MMA = 0
 
 R_ACT = 6  # receptive radius of the alias-free activation
 SMEM_BYTES = 232448  # H100: shared memory one block can use
@@ -411,8 +403,9 @@ def _pack(stage_params: List[dict], route: str, device) -> tuple:
 def _launch_cf(xc: torch.Tensor, out: torch.Tensor, packed: tuple, kernel_sizes, dilations,
                fast) -> None:
     """One kernel launch over channels-first contiguous xc (B, C, T) into
-    out, on `pick_route(xc)`'s kernel; packed = `_pack(..., route, ...)`."""
-    global LAUNCHES_MMA
+    out, on `pick_route(xc)`'s kernel; packed = `_pack(..., route, ...)`.
+    K1, K2a and K2b all launch here: the recorder counts `amp_stage.mma` or
+    `amp_stage.f32` by route (`obs.count`)."""
     if xc.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"fused AMP stage kernel takes float32 or bfloat16, not {xc.dtype}")
     b, c, t = xc.shape
@@ -431,8 +424,7 @@ def _launch_cf(xc: torch.Tensor, out: torch.Tensor, packed: tuple, kernel_sizes,
                 taps, stream)
     if rc != 0:
         raise RuntimeError(f"amp_stage kernel launch failed ({route}): CUDA error {rc}")
-    if route == "mma":
-        LAUNCHES_MMA += 1
+    obs.count("amp_stage.mma" if route == "mma" else "amp_stage.f32")
 
 
 def _check_stage(x: torch.Tensor, stage_params, kernel_sizes, dilations, accum: str) -> None:
@@ -466,7 +458,6 @@ def fused_amp_stage(x: torch.Tensor, stage_params: List[dict],
     JAX "bf16" and "f32" modes; bf16 rounds only the conv operands, as the
     TPU kernel does), and one formulation serves all three `conv` values,
     which the JAX package measured to give the same numbers."""
-    global LAUNCHES
     if conv not in CONV_MODES:
         raise ValueError(f"conv must be one of {CONV_MODES}, got {conv!r}")
     _check_stage(x, stage_params, kernel_sizes, dilations, accum)
@@ -476,7 +467,6 @@ def fused_amp_stage(x: torch.Tensor, stage_params: List[dict],
     out = torch.empty_like(xc)
     _launch_cf(xc, out, _pack(stage_params, pick_route(xc), x.device), kernel_sizes, dilations,
                fast)
-    LAUNCHES += 1
     return out.transpose(1, 2)
 
 
@@ -489,7 +479,6 @@ def fused_amp_stage_tc(x: torch.Tensor, stage_params: List[dict],
     element, each on that element's own (T, C) -> (C, T) transpose. The
     JAX `reference_fn` and `tile` are not taken: the kernel computes the
     edges itself and masks a ragged last tile. CPU: the plain version."""
-    global LAUNCHES_TC
     _check_stage(x, stage_params, kernel_sizes, dilations, accum)
     if x.device.type == "cpu":
         return fused_amp_stage_plain(x, stage_params, kernel_sizes, dilations, fast)
@@ -498,7 +487,6 @@ def fused_amp_stage_tc(x: torch.Tensor, stage_params: List[dict],
         xc = x[i:i + 1].transpose(1, 2).contiguous()
         out = torch.empty_like(xc)
         _launch_cf(xc, out, packed, kernel_sizes, dilations, fast)
-        LAUNCHES_TC += 1
         outs.append(out.transpose(1, 2))
     return torch.cat(outs)
 
@@ -511,7 +499,6 @@ def fused_amp_stage_cl(x: torch.Tensor, stage_params: List[dict],
     channels-first form, one (B, T, C) -> (B, C, T) transpose for the batch
     and then one launch per batch element on its (C, T) slice. conv="kstack"
     is refused, as the JAX function refuses it. CPU: the plain version."""
-    global LAUNCHES_CL
     if conv not in ("tap", "mstack"):
         raise ValueError(f"fused_amp_stage_cl takes conv 'tap' or 'mstack', got {conv!r}")
     _check_stage(x, stage_params, kernel_sizes, dilations, accum)
@@ -522,5 +509,4 @@ def fused_amp_stage_cl(x: torch.Tensor, stage_params: List[dict],
     packed = _pack(stage_params, pick_route(x), x.device)
     for i in range(x.shape[0]):
         _launch_cf(xc[i:i + 1], out[i:i + 1], packed, kernel_sizes, dilations, fast)
-        LAUNCHES_CL += 1
     return out.transpose(1, 2)

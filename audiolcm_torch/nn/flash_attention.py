@@ -30,10 +30,7 @@ import functools
 
 import torch
 
-# Kernel launches since the last reset (chip_smoke sets them to 0 around a
-# run): every launch, and those of the bf16 tensor-core kernel.
-LAUNCHES = 0
-LAUNCHES_TC = 0
+from audiolcm_torch import obs
 
 BLOCK_K = 64  # keys per shared-memory tile; must match csrc/flash_attention.cu
 MAX_D = 128
@@ -127,7 +124,6 @@ def _library():
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
-    global LAUNCHES, LAUNCHES_TC
     b, h, t, d = q.shape
     # written in the (B, T, H, D) layout the output projection reads, so
     # out.transpose(1, 2).reshape(B, T, H*D) is a view
@@ -141,9 +137,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> 
             float(scale), ROUTES[route], stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed ({route}): CUDA error {rc}")
-    LAUNCHES += 1
-    if route != "cuda_core":
-        LAUNCHES_TC += 1
+    obs.count("flash_attention.f32" if route == "cuda_core" else "flash_attention.tc")
     return out
 
 

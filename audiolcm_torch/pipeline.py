@@ -19,6 +19,7 @@ from typing import Optional
 
 import torch
 
+from audiolcm_torch import obs
 from audiolcm_torch.aot import graph_key
 from audiolcm_torch.convert import assign_state_dict, fold_weight_norms
 from audiolcm_torch.diffusion.ddim import DDIMConfig, ddim_sample
@@ -106,47 +107,52 @@ class AudioLCMPipeline:
     def __init__(self, modules: PipelineModules, params: Optional[PipelineParams] = None,
                  schedule: Optional[NoiseSchedule] = None, lcm_config: LCMConfig = LCMConfig(),
                  default_latent_len: int = 312, compute_dtype=None, device=None):
-        self.device = resolve_device(device)
-        if compute_dtype is None:
-            compute_dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
-        self.compute_dtype = compute_dtype
-        self.modules = modules
-        self.scale_factor = 1.0
-        if params is not None:
-            load_params(modules, params)
-            self.scale_factor = float(params.scale_factor)
-        for _, m in modules.items():
-            m.to(device=self.device, dtype=compute_dtype).eval().requires_grad_(False)
-        self.schedule = schedule if schedule is not None else NoiseSchedule.linear()
-        self.lcm_config = lcm_config
-        self.default_latent_len = default_latent_len
-        # graph_key -> captured generate (api.prewarm_buckets), all in one
-        # memory pool; generate prefers these, as the JAX package's
-        # generate_jit prefers its AOT executables
-        self._graphs: dict = {}
-        self._graph_pool = None
+        with obs.span("init"):  # the module loads and casts: a part of set-up
+            self.device = resolve_device(device)
+            if compute_dtype is None:
+                compute_dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
+            self.compute_dtype = compute_dtype
+            self.modules = modules
+            self.scale_factor = 1.0
+            if params is not None:
+                load_params(modules, params)
+                self.scale_factor = float(params.scale_factor)
+            for _, m in modules.items():
+                m.to(device=self.device, dtype=compute_dtype).eval().requires_grad_(False)
+            self.schedule = schedule if schedule is not None else NoiseSchedule.linear()
+            self.lcm_config = lcm_config
+            self.default_latent_len = default_latent_len
+            # graph_key -> captured generate (api.prewarm_buckets), all in one
+            # memory pool; generate prefers these, as the JAX package's
+            # generate_jit prefers its AOT executables
+            self._graphs: dict = {}
+            self._graph_pool = None
 
     def encode_text_ids(self, clap_ids, t5_ids) -> torch.Tensor:
         """Token ids -> (B, 2L, d) context: CLAP half first, no masks."""
         to = lambda ids: torch.as_tensor(ids, device=self.device).long()
-        z1 = self.modules.clap_text(to(clap_ids))
-        z2 = self.modules.t5(to(t5_ids))
-        return torch.cat([z1, z2], dim=1)
+        with obs.stage("text", self.device):
+            z1 = self.modules.clap_text(to(clap_ids))
+            z2 = self.modules.t5(to(t5_ids))
+            return torch.cat([z1, z2], dim=1)
 
     def sample_latent(self, context: torch.Tensor, latent_len: int, generator=None,
                       x_T=None, noise=None) -> torch.Tensor:
         dit = self.modules.dit
         shape = (context.shape[0], latent_len, dit.in_channels)
-        return lcm_sample(lambda x, t, w: dit(x, t, context, w), self.schedule, shape,
-                          self.lcm_config, x_T=x_T, noise=noise, generator=generator,
-                          dtype=self.compute_dtype, device=self.device)
+        with obs.stage("dit", self.device):
+            return lcm_sample(lambda x, t, w: dit(x, t, context, w), self.schedule, shape,
+                              self.lcm_config, x_T=x_T, noise=noise, generator=generator,
+                              dtype=self.compute_dtype, device=self.device)
 
     def decode_latent(self, z: torch.Tensor) -> torch.Tensor:
         """LCM latent -> mel (B, T, 80), including 1/scale_factor."""
-        return self.modules.vae.decode((z / self.scale_factor).to(self.compute_dtype))
+        with obs.stage("vae", self.device):
+            return self.modules.vae.decode((z / self.scale_factor).to(self.compute_dtype))
 
     def vocode(self, mel: torch.Tensor) -> torch.Tensor:
-        return self.modules.vocoder(mel)
+        with obs.stage("vocoder", self.device):
+            return self.modules.vocoder(mel)
 
     def _generator(self, generator, *given):
         """`generator`, or a seed-0 one on the device when something is to
@@ -178,14 +184,17 @@ class AudioLCMPipeline:
         x_T and the per-step noise are given. When `api.prewarm_buckets`
         captured a graph for these id shapes and dtypes and this latent
         length, and no draw is given, the graph replays: it draws from the
-        generator in this path's order and returns the same waveform."""
+        generator in this path's order and returns the same waveform. Each
+        call is one `request` of the recorder (`obs`)."""
         latent_len = latent_len or self.default_latent_len
         if x_T is None and noise is None:
             graph = self._graphs.get(graph_key(clap_ids, t5_ids, latent_len))
             if graph is not None:
-                return graph.replay(clap_ids, t5_ids, self._generator(generator))
-        context = self.encode_text_ids(clap_ids, t5_ids)
-        return self.generate_from_context(context, latent_len, generator, x_T, noise)
+                with obs.request("replay"):
+                    return graph.replay(clap_ids, t5_ids, self._generator(generator))
+        with obs.request("eager"):
+            context = self.encode_text_ids(clap_ids, t5_ids)
+            return self.generate_from_context(context, latent_len, generator, x_T, noise)
 
     def sample_latent_teacher(self, context: torch.Tensor, uncond: torch.Tensor,
                               latent_len: int, num_steps: int = 100,
@@ -200,9 +209,10 @@ class AudioLCMPipeline:
 
         shape = (context.shape[0], latent_len, dit.in_channels)
         sampler = plms_sample if use_plms else ddim_sample
-        return sampler(denoise_fn, self.schedule, shape, context, uncond,
-                       DDIMConfig(num_steps=num_steps, guidance_scale=guidance_scale),
-                       x_T=x_T, noise=noise, generator=generator, device=self.device)
+        with obs.stage("dit", self.device):
+            return sampler(denoise_fn, self.schedule, shape, context, uncond,
+                           DDIMConfig(num_steps=num_steps, guidance_scale=guidance_scale),
+                           x_T=x_T, noise=noise, generator=generator, device=self.device)
 
     @torch.inference_mode()
     def generate_teacher(self, context: torch.Tensor, uncond: torch.Tensor,
@@ -215,11 +225,13 @@ class AudioLCMPipeline:
         (B, 2L, d) and uncond (1 or B, 2L, d) -> (wav, mel), both f32. It runs
         the pipeline's DiT, the student when the checkpoint has one, as the
         JAX package does. x_T and noise (DDIM: (S, *shape); PLMS:
-        (S, 2, *shape)) replace the draws from `generator`."""
+        (S, 2, *shape)) replace the draws from `generator`. Each call is one
+        `request` of the recorder (`obs`)."""
         latent_len = latent_len or self.default_latent_len
-        z = self.sample_latent_teacher(context.to(self.device), uncond.to(self.device),
-                                       latent_len, num_steps, guidance_scale, use_plms,
-                                       self._generator(generator, x_T, noise), x_T, noise)
-        mel = self.decode_latent(z)
-        wav = self.vocode(mel)
-        return wav.float(), mel.float()
+        with obs.request("teacher"):
+            z = self.sample_latent_teacher(context.to(self.device), uncond.to(self.device),
+                                           latent_len, num_steps, guidance_scale, use_plms,
+                                           self._generator(generator, x_T, noise), x_T, noise)
+            mel = self.decode_latent(z)
+            wav = self.vocode(mel)
+            return wav.float(), mel.float()

@@ -15,7 +15,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                 the main paths' shapes (f32 with TF32 off, and bf16): the AMP
                 stage K1, K1 at each stage variant of the profiler, its
                 per-item forms K2a/K2b (f32 on K1's CUDA-core kernel, bf16 on
-                its tensor-core kernel, counted in LAUNCHES_MMA; bf16 held
+                its tensor-core kernel, counted in `amp_stage.mma`; bf16 held
                 over the whole output, its edges and its last tile), flash
                 attention K3 (f32 on its CUDA-core kernel, bf16 on its
                 tensor-core kernel through the 16-byte or the element-wise
@@ -278,18 +278,20 @@ def build_phase() -> dict:
 
 
 def amp_counts() -> tuple:
-    from audiolcm_torch.nn import amp_stage as A
+    """The recorder's AMP-stage launch totals: (f32 route, tensor-core route)."""
+    from audiolcm_torch import obs
 
-    return A.LAUNCHES, A.LAUNCHES_TC, A.LAUNCHES_CL, A.LAUNCHES_MMA
+    c = obs.counters()
+    return c.get("amp_stage.f32", 0), c.get("amp_stage.mma", 0)
 
 
 def route_row(x: torch.Tensor, ks, ds, n0: tuple, n1: tuple, n2: tuple, on_card: bool,
-              wrapper: int = 0, per_call: int = 1) -> tuple:
+              per_call: int = 1) -> tuple:
     """The routes and tiles of an f32 call (amp_counts() n0 -> n1) and a
-    bf16 call (n1 -> n2) of one AMP-stage wrapper (`wrapper`: 0 K1, 1 K2a,
-    2 K2b), their launches [K1, K2a, K2b, MMA] and whether they are as
-    expected: on the card each call adds `per_call` to its wrapper's count
-    and the bf16 call as many to LAUNCHES_MMA; the CPU launches nothing."""
+    bf16 call (n1 -> n2) of one AMP-stage wrapper, their launches [f32,
+    mma] and whether they are as expected: on the card the f32 call adds
+    `per_call` to `amp_stage.f32` and the bf16 call as many to
+    `amp_stage.mma`; the CPU launches nothing."""
     from audiolcm_torch.nn import amp_stage as A
 
     r = A.stage_radius(ks, ds)
@@ -300,8 +302,7 @@ def route_row(x: torch.Tensor, ks, ds, n0: tuple, n1: tuple, n2: tuple, on_card:
            "bf16_route": A.pick_route(x.bfloat16()), "bf16_tile": A.route_tile("mma", c, r),
            "launches_f32_call": f32_step, "launches_bf16_call": bf16_step}
     n = per_call if on_card else 0
-    want = [n if i == wrapper else 0 for i in range(4)]
-    return row, f32_step == want and bf16_step == want[:3] + [n]
+    return row, f32_step == [n, 0] and bf16_step == [0, n]
 
 
 def bf16_regions(kb: torch.Tensor, pb: torch.Tensor, plain: torch.Tensor, tile: int) -> dict:
@@ -515,7 +516,7 @@ def check_k2_phase(device, shapes, rehearsal: bool) -> list:
             kerr = (kb - plain).abs().mean().item()
             sync(device)
             routes, counted = route_row(x, KS, DS, n0, n1, amp_counts(), not rehearsal,
-                                        wrapper=1 if name == "amp_stage_tc" else 2, per_call=2)
+                                        per_call=2)
             regions = bf16_regions(kb, pb, plain, routes["bf16_tile"])
             row = {"kernel": name, "C": c, "T": t, "batch": 2, "f32_max_abs_err": err,
                    "f32_tol": F32_TOL, "bf16_mean_err": kerr, "plain_bf16_mean_err": perr,
@@ -544,12 +545,14 @@ def check_flash_phase(device, cases) -> list:
     """K3 against its plain version: f32 (the CUDA-core kernel) max abs
     error <= FLASH_TOL; bf16 (the tensor-core kernel, on the route each case
     names) mean error against the f32 plain result at most 1.02x the plain
-    bf16 path's. On the card each f32 call adds one to LAUNCHES only, each
-    bf16 call one to LAUNCHES and one to LAUNCHES_TC."""
+    bf16 path's. On the card each f32 call adds one to `flash_attention.f32`,
+    each bf16 call one to `flash_attention.tc`."""
+    from audiolcm_torch import obs
     from audiolcm_torch.nn import flash_attention as FA
 
     on_card = device.type == "cuda"
-    counts = lambda: (FA.LAUNCHES, FA.LAUNCHES_TC)
+    counts = lambda: (obs.counters().get("flash_attention.f32", 0),
+                      obs.counters().get("flash_attention.tc", 0))
     step = lambda a, b: [b[0] - a[0], b[1] - a[1]]
     rows = []
     for i, (shape, views, route) in enumerate(cases):
@@ -573,7 +576,7 @@ def check_flash_phase(device, cases) -> list:
                "bf16_max_abs_err_vs_plain_bf16": (kb16 - pb16).abs().max().item(),
                "launches_f32_call": step(n0, n1), "launches_bf16_call": step(n1, n2)}
         emit({"phase": "check", **row})
-        want = ([1, 0], [1, 1]) if on_card else ([0, 0], [0, 0])
+        want = ([1, 0], [0, 1]) if on_card else ([0, 0], [0, 0])
         if not (err <= FLASH_TOL and kerr <= perr * 1.02 and row["bf16_route"] == route
                 and (row["launches_f32_call"], row["launches_bf16_call"]) == want):
             raise AssertionError(f"flash_attention disagrees with its plain version: {row}")
@@ -644,6 +647,7 @@ def check_act_phase(device, shapes, rehearsal: bool) -> list:
     off and on: f32 max abs error (whole, and the first and last
     halo(n_rep) samples) <= F32_TOL; bf16 mean error against the f32 plain
     result at most 1.02x the plain bf16 chain's; one launch per call."""
+    from audiolcm_torch import obs
     from audiolcm_torch.nn import act_chain as K
 
     kernel = K.act_chain_tiles_emulated if rehearsal else K.act_chain
@@ -655,9 +659,9 @@ def check_act_phase(device, shapes, rehearsal: bool) -> list:
         for n_rep in (1, 2, 6, K.MAX_NREP):
             for fast in (False, True):
                 plain = K.act_chain_plain(x, a, b, n_rep, fast)
-                before = K.LAUNCHES
+                before = obs.counters().get("act_chain", 0)
                 err = (kernel(x, a, b, n_rep, fast) - plain).abs()
-                launches = K.LAUNCHES - before
+                launches = obs.counters().get("act_chain", 0) - before
                 h = K.halo(n_rep)
                 edge = max(err[..., :h].max().item(), err[..., -h:].max().item())
                 kerr = (kernel(x.bfloat16(), a, b, n_rep, fast).float() - plain).abs().mean().item()
@@ -767,24 +771,32 @@ def build_modules(device, full: bool, fast_snake: bool = True):
     return mods
 
 
-def reset_counts() -> None:
-    from audiolcm_torch.nn import act_chain as K
-    from audiolcm_torch.nn import amp_stage as A
-    from audiolcm_torch.nn import flash_attention as FA
+# the recorder's launch counters (audiolcm_torch.obs), by kernel and route
+COUNTERS = ("amp_stage.mma", "amp_stage.f32", "flash_attention.tc", "flash_attention.f32",
+            "act_chain")
+_counts_base: dict = {}
 
-    A.LAUNCHES = A.LAUNCHES_TC = A.LAUNCHES_CL = A.LAUNCHES_MMA = 0
-    FA.LAUNCHES = FA.LAUNCHES_TC = K.LAUNCHES = 0
+
+def reset_counts() -> None:
+    """Marks the launch totals that read_counts() counts from."""
+    from audiolcm_torch import obs
+
+    global _counts_base
+    _counts_base = obs.counters()
 
 
 def read_counts() -> dict:
-    from audiolcm_torch.nn import act_chain as K
-    from audiolcm_torch.nn import amp_stage as A
-    from audiolcm_torch.nn import flash_attention as FA
+    """Launches of each kernel and route since reset_counts()."""
+    from audiolcm_torch import obs
 
-    return {"amp_stage": A.LAUNCHES, "amp_stage_tc": A.LAUNCHES_TC,
-            "amp_stage_cl": A.LAUNCHES_CL, "amp_stage_mma": A.LAUNCHES_MMA,
-            "flash_attention": FA.LAUNCHES,
-            "flash_attention_tc": FA.LAUNCHES_TC, "act_chain": K.LAUNCHES}
+    now = obs.counters()
+    return {k: now.get(k, 0) - _counts_base.get(k, 0) for k in COUNTERS}
+
+
+def counts_with(**nonzero) -> dict:
+    """read_counts()'s dict with every counter 0 but these (`amp_stage_mma`
+    for `amp_stage.mma`, ...)."""
+    return {k: nonzero.get(k.replace(".", "_"), 0) for k in COUNTERS}
 
 
 def set_flash(dit: torch.nn.Module, on: bool) -> None:
@@ -841,9 +853,7 @@ def generate_phase(device, mods, full: bool, card: dict) -> dict:
     on_card = device.type == "cuda"
     ok = (tuple(wav.shape) == expect and bool(torch.isfinite(wav).all())
           and wav.abs().max().item() <= 1.0
-          and launches == {"amp_stage": 2 if on_card else 0, "amp_stage_tc": 0,
-                           "amp_stage_cl": 0, "amp_stage_mma": 2 if on_card else 0,
-                           "flash_attention": 0, "flash_attention_tc": 0, "act_chain": 0})
+          and launches == counts_with(amp_stage_mma=2 if on_card else 0))
     row = {"batch": batch, "wav_shape": list(wav.shape), "mel_shape": list(mel.shape),
            "finite": bool(torch.isfinite(wav).all()), "wav_abs_max": wav.abs().max().item(),
            "wav_std": wav.std().item(),
@@ -880,8 +890,8 @@ def generate_phase(device, mods, full: bool, card: dict) -> dict:
         row["ms_per_generate_with_flash"] = 1e3 * (time.perf_counter() - t0) / iters
     set_flash(pipe.modules.dit, False)
     n_flash = 2 * len(pipe.modules.dit.blocks) * 2 if on_card else 0  # 2 LCM steps
-    if not (row["launches_with_flash"]["flash_attention"]
-            == row["launches_with_flash"]["flash_attention_tc"] == n_flash):
+    if row["launches_with_flash"] != counts_with(amp_stage_mma=2 if on_card else 0,
+                                                 flash_attention_tc=n_flash):
         raise AssertionError(f"LCM generate with flash: {row['launches_with_flash']}")
     emit({"phase": "generate", **row})
     return row
@@ -892,7 +902,7 @@ def knob_phase(device, mods, full: bool) -> dict:
     serving vocoder (bf16, fast snake) at batch 8 on a 10 s mel with
     pallas_stage_max_channels 48 and 96. At 96 the C=96 stage, which no
     route takes, runs unfused, so both knobs launch the tensor-core kernel
-    for C=48 and 24 alone (2 LAUNCHES_MMA each on the card) and give the
+    for C=48 and 24 alone (2 `amp_stage.mma` each on the card) and give the
     same waveform: the same ops on the same input, cuDNN deterministic."""
     voc = mods.vocoder
     batch, frames = (8, 624) if full else (2, 16)
@@ -912,7 +922,7 @@ def knob_phase(device, mods, full: bool) -> dict:
             sync(device)
             row[f"knob_{knob}"] = {"fused_widths": [c for c in widths
                                                     if voc._fused(c, torch.bfloat16)],
-                                   "launches_mma": read_counts()["amp_stage_mma"]}
+                                   "launches_mma": read_counts()["amp_stage.mma"]}
     finally:
         voc.pallas_stage_max_channels = 48
         torch.backends.cudnn.deterministic = deterministic
@@ -984,10 +994,13 @@ def error_budget_phase(device, full: bool, card: dict) -> dict:
              "fast_snake": (torch.float32, True, False, False),
              "bf16": (torch.bfloat16, False, False, False),
              "all": (torch.bfloat16, True, True, True)}
-    expect = {name: {"amp_stage": k1 if fused else 0,
-                     "amp_stage_mma": k1 if fused and dtype == torch.bfloat16 else 0,
-                     "flash_attention": n_flash if flash else 0,
-                     "flash_attention_tc": n_flash if flash and dtype == torch.bfloat16 else 0}
+    def expected(dtype, fused: bool, flash: bool) -> dict:
+        tc = dtype == torch.bfloat16  # bf16 takes the tensor-core routes
+        return {"amp_stage.f32": k1 * (fused and not tc), "amp_stage.mma": k1 * (fused and tc),
+                "flash_attention.f32": n_flash * (flash and not tc),
+                "flash_attention.tc": n_flash * (flash and tc)}
+
+    expect = {name: expected(dtype, fused, flash)
               for name, (dtype, _, fused, flash) in knobs.items()}
     wavs, stages, rows = {}, {}, {}
     rel_l2 = lambda a, b: ((a - b).norm() / b.norm()).item()  # noqa: E731
@@ -1136,9 +1149,7 @@ def native_ckpt_phase(device, mods, full: bool, card: dict, tmp: str) -> dict:
     emit({"phase": "native_ckpt", **row})
     del fresh, loaded
     if not (row["repeat_equal"] and row["bit_exact_after_load"]
-            and counts == {"amp_stage": k1, "amp_stage_tc": 0, "amp_stage_cl": 0,
-                           "amp_stage_mma": k1, "flash_attention": 0, "flash_attention_tc": 0,
-                           "act_chain": 0}):
+            and counts == counts_with(amp_stage_mma=k1)):
         raise AssertionError(f"native_ckpt: the loaded pipeline differs: {row}")
     return row
 
@@ -1206,7 +1217,7 @@ def teacher_check_phase(device, full: bool) -> dict:
     and inputs in bf16: the mean error of eps with flash (the tensor-core
     kernel, one launch per self-attention) against the f32 einsum eps at
     most 1.02x the bf16 einsum path's."""
-    from audiolcm_torch.nn import flash_attention as FA
+    from audiolcm_torch import obs
     from audiolcm_torch.models.dit import ConcatDiT2MLP
 
     latent = 312 if full else 16
@@ -1237,10 +1248,10 @@ def teacher_check_phase(device, full: bool) -> dict:
         bf16_err, n_tc = {}, 0
         for flash in (False, True):
             set_flash(dit, flash)
-            n0 = FA.LAUNCHES_TC
+            n0 = obs.counters().get("flash_attention.tc", 0)
             out = dit(x2.bfloat16(), t2, c2.bfloat16(), None).float()
             sync(device)
-            n_tc += FA.LAUNCHES_TC - n0
+            n_tc += obs.counters().get("flash_attention.tc", 0) - n0
             bf16_err[flash] = (out - eps[False]).abs().mean().item()
     n_attn = 2 * len(dit.blocks)
     row_b = {"batch": 2, "dit_batch": 4, "seq": 1 + 154 + latent, "dtype": "bfloat16",
@@ -1294,9 +1305,7 @@ def teacher_phase(device, mods, full: bool, card: dict) -> dict:
            "finite": bool(torch.isfinite(wav).all()), "wav_abs_max": wav.abs().max().item(),
            "wav_std": wav.std().item(), "launches": launches}
     n_flash = n_attn * n_steps if on_card else 0
-    want = {"amp_stage": 2 if on_card else 0, "amp_stage_tc": 0, "amp_stage_cl": 0,
-            "amp_stage_mma": 2 if on_card else 0, "flash_attention": n_flash,
-            "flash_attention_tc": n_flash, "act_chain": 0}
+    want = counts_with(amp_stage_mma=2 if on_card else 0, flash_attention_tc=n_flash)
     if not (tuple(wav.shape) == expect and row["finite"] and row["wav_abs_max"] <= 1.0
             and launches == want):
         emit({"phase": "teacher", **row})
@@ -1325,8 +1334,8 @@ def teacher_phase(device, mods, full: bool, card: dict) -> dict:
         plms["ms_one_generate"] = 1e3 * (time.perf_counter() - t0)
     row["plms"] = plms
     n_plms = n_attn * (len(make_ddim_timesteps(25)) + 1) if on_card else 0
-    if not (plms["finite"] and plms["launches"]["flash_attention"]
-            == plms["launches"]["flash_attention_tc"] == n_plms):
+    if not (plms["finite"] and plms["launches"]["flash_attention.tc"] == n_plms
+            and plms["launches"]["flash_attention.f32"] == 0):
         emit({"phase": "teacher", **row})
         raise AssertionError(f"PLMS-25 check failed: {plms}, flash launches expected {n_plms}")
     set_flash(mods.dit, False)
@@ -1381,9 +1390,7 @@ def interior_phase(device, shapes, card: dict, rehearsal: bool) -> dict:
     emit({"phase": "interior_launches", "launches": launches})
     per_row = 0 if rehearsal else (1 + iters) * len(shapes)  # warm-up + iters per row
     n_k1, n_k4 = 6 * per_row, 2 * per_row  # 6 stage rows, 2 act rows
-    if launches != {"amp_stage": n_k1, "amp_stage_tc": 0, "amp_stage_cl": 0,
-                    "amp_stage_mma": n_k1, "flash_attention": 0, "flash_attention_tc": 0,
-                    "act_chain": n_k4}:
+    if launches != counts_with(amp_stage_mma=n_k1, act_chain=n_k4):
         raise AssertionError(f"profiler run: launches {launches}, expected K1 {n_k1}, K4 {n_k4}")
     return {"launches": launches, "tables": tables}
 
@@ -1626,7 +1633,7 @@ def prewarm_phase(device, mods, full: bool, card: dict) -> dict:
     sync(device)
     replay_counts = read_counts()
     row = {"buckets": buckets, "capture_launches": capture_launches,
-           "python_counts_per_replay": replay_counts, "replay_vs_eager_max_abs": diff,
+           "counts_per_replay": replay_counts, "replay_vs_eager_max_abs": diff,
            "tol": REPLAY_TOL, "wav_shape": list(wav_r.shape)}
     row["replay_ms"] = median_ms(replay)
     row["eager_ms"] = median_ms(run_eager)
@@ -1640,7 +1647,8 @@ def prewarm_phase(device, mods, full: bool, card: dict) -> dict:
     row["card"] = card["nvidia_smi"]
     emit({"phase": "prewarm", **row})
     if not (all(h == "captured" for h in hows.values()) and len(hows) == 4 and diff <= REPLAY_TOL
-            and row["k1_launches_per_replay"] == 2 and replay_counts["amp_stage"] == 0
+            and row["k1_launches_per_replay"] == 2
+            and replay_counts == counts_with(amp_stage_mma=2)
             and bool(torch.isfinite(wav_r).all())):
         raise AssertionError(f"prewarm: {row}")
     pipe._graphs.clear()
@@ -3694,8 +3702,9 @@ def kernels_line(checks, k2_checks, flash_checks, times, k2_times, flash_time, g
               "sass_hmma": build_row.get("amp_stage_sass_hmma", nm)}
     out = [{"name": "amp_stage",
             "replaces": "audiolcm_tpu/nn/pallas_amp_stage.py:665 fused_amp_stage_cl_batched",
-            "launches": gen_row["launches"]["amp_stage"],
-            "launches_mma": gen_row["launches"]["amp_stage_mma"],
+            "launches": gen_row["launches"]["amp_stage.mma"]
+            + gen_row["launches"]["amp_stage.f32"],
+            "launches_mma": gen_row["launches"]["amp_stage.mma"],
             "max_abs_err": max(r["f32_max_abs_err"] for r in checks),
             "bf16_mean_err_ratio_max": ratio(checks),
             "bf16_region_err_ratio_max": region_ratio(checks),
@@ -3705,7 +3714,6 @@ def kernels_line(checks, k2_checks, flash_checks, times, k2_times, flash_time, g
                        ("amp_stage_cl",
                         "audiolcm_tpu/nn/pallas_amp_stage.py:566 fused_amp_stage_cl")):
         out.append({"name": name, "replaces": site,
-                    "launches": teacher_row["launches"][name],
                     "max_abs_err": max(r["f32_max_abs_err"] for r in k2_checks
                                        if r["kernel"] == name),
                     "bf16_mean_err_ratio_max": ratio([r for r in k2_checks
@@ -3720,8 +3728,9 @@ def kernels_line(checks, k2_checks, flash_checks, times, k2_times, flash_time, g
                          "CUDA cores for f32",
                 "source": "audiolcm_torch/csrc/flash_attention.cu",
                 "replaces": "audiolcm_tpu/nn/pallas_attention.py:72 flash_attention",
-                "launches": teacher_row["launches"]["flash_attention"],
-                "launches_tc": teacher_row["launches"]["flash_attention_tc"],
+                "launches": teacher_row["launches"]["flash_attention.tc"]
+                + teacher_row["launches"]["flash_attention.f32"],
+                "launches_tc": teacher_row["launches"]["flash_attention.tc"],
                 "max_abs_err": max(r["f32_max_abs_err"] for r in flash_checks),
                 "bf16_max_abs_err_vs_plain_bf16": max(r["bf16_max_abs_err_vs_plain_bf16"]
                                                       for r in flash_checks),
@@ -3731,8 +3740,8 @@ def kernels_line(checks, k2_checks, flash_checks, times, k2_times, flash_time, g
                 **{k: flash_time.get(k, nm) for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                       "library_ms")},
                 "shape": flash_time.get("shape", nm),
-                "launches_plms_25": teacher_row["plms"]["launches"]["flash_attention"],
-                "launches_lcm_with_flash": gen_row["launches_with_flash"]["flash_attention"]})
+                "launches_plms_25": teacher_row["plms"]["launches"]["flash_attention.tc"],
+                "launches_lcm_with_flash": gen_row["launches_with_flash"]["flash_attention.tc"]})
     act_sum = lambda key: sum(r[key] for r in act_times) if act_times else nm
     out.append({"name": "act_chain", "route": "cuda", "source": "audiolcm_torch/csrc/act_chain.cu",
                 "replaces": "tools/profile_stage_interior.py:110 act_only_fn",
@@ -3853,8 +3862,8 @@ def main(argv=None) -> int:
     line["kernels"][0]["launches_per_captured_replay"] = prewarm_row.get(
         "k1_launches_per_replay", "not measured")
     k3 = next(k for k in line["kernels"] if k["name"] == "flash_attention")
-    for k, keys in ((line["kernels"][0], ("amp_stage", "amp_stage_mma")),
-                    (k3, ("flash_attention", "flash_attention_tc"))):
+    for k, keys in ((line["kernels"][0], ("amp_stage.f32", "amp_stage.mma")),
+                    (k3, ("flash_attention.f32", "flash_attention.tc"))):
         k["launches_error_budget"] = {name: {c: r["launches"][c] for c in keys}
                                       for name, r in budget_row["rows"].items()}
     emit(line)

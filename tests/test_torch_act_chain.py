@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from audiolcm_torch import obs
 from audiolcm_torch.nn import act_chain as K
 from audiolcm_torch.nn.amp_stage import SMEM_BYTES
 from audiolcm_torch.tools import profile_stage_interior as PT
@@ -167,9 +168,9 @@ def test_long_chains_amplify_f32_rounding():
 def test_wrapper_dispatch_and_validation():
     x = torch.from_numpy(_x(3, 1, 100, 6))
     a, b = (torch.from_numpy(v) for v in _snake_params(4, 6))
-    K.LAUNCHES = 0
+    before = obs.counters()
     assert torch.equal(K.act_chain(x, a, b, 2), K.act_chain_plain(x, a, b, 2, True))
-    assert K.LAUNCHES == 0  # the CPU path launches nothing
+    assert obs.counters() == before  # the CPU path launches nothing
     with pytest.raises(ValueError, match=r"\(B, T, C\)"):
         K.act_chain(x[0], a, b, 2)
     with pytest.raises(ValueError, match="alpha and beta"):
@@ -242,10 +243,10 @@ def test_kernel_matches_plain_on_card(cuda_device, c, t):
     for n_rep in (1, 2, 6) + ((K.MAX_NREP,) if c == 48 else ()):
         for fast in (False, True):
             plain = K.act_chain_plain(x, a, b, n_rep, fast)
-            before = K.LAUNCHES
+            before = obs.counters().get("act_chain", 0)
             out = K.act_chain(x, a, b, n_rep, fast)
             torch.cuda.synchronize()
-            assert K.LAUNCHES == before + 1
+            assert obs.counters().get("act_chain", 0) == before + 1
             err, h = (out - plain).abs(), K.halo(n_rep)
             assert err.max().item() < 1e-4
             assert max(err[..., :h].max().item(), err[..., -h:].max().item()) < 1e-4

@@ -16,6 +16,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from audiolcm_torch import obs
 from audiolcm_torch.nn import amp_stage as A
 from torch_threads import one_torch_thread  # noqa: F401  (autouse; tests/ is on sys.path)
 
@@ -193,9 +194,9 @@ def test_per_item_forms_match_jax(stage_2048, form):
                                       reference_fn=lambda xb: jax_unfused(xb, trees), tile=512,
                                       interpret=True), x)
     port = A.fused_amp_stage_tc if form == "tc" else A.fused_amp_stage_cl
-    A.LAUNCHES_TC = A.LAUNCHES_CL = 0
+    before = obs.counters()
     out = port(torch.from_numpy(x), torch_stage_params(trees), KS, DS).numpy()
-    assert A.LAUNCHES_TC == A.LAUNCHES_CL == 0
+    assert obs.counters() == before
     np.testing.assert_allclose(out, ref, atol=2e-5)
     np.testing.assert_allclose(out, golden, atol=2e-5)
 
@@ -203,10 +204,10 @@ def test_per_item_forms_match_jax(stage_2048, form):
 def test_wrapper_dispatch_and_validation(stage_2048):
     x, trees, _, _ = stage_2048
     xt, sp = torch.from_numpy(x), torch_stage_params(trees)
-    A.LAUNCHES = 0
+    before = obs.counters()
     out = A.fused_amp_stage(xt, sp, KS, DS, accum="f32", conv="kstack")
     assert torch.equal(out, A.fused_amp_stage_plain(xt, sp, KS, DS))
-    assert A.LAUNCHES == 0  # the CPU path launches nothing
+    assert obs.counters() == before  # the CPU path launches nothing
     with pytest.raises(ValueError, match="accum"):
         A.fused_amp_stage(xt, sp, KS, DS, accum="f16")
     with pytest.raises(ValueError, match="conv"):
@@ -315,10 +316,10 @@ def test_cpu_path_launches_no_mma_kernel(stage_2048):
     of either kernel, is counted."""
     x, trees, _, _ = stage_2048
     xb, spb = torch.from_numpy(x).bfloat16(), torch_stage_params(trees, dtype=torch.bfloat16)
-    A.LAUNCHES = A.LAUNCHES_TC = A.LAUNCHES_CL = A.LAUNCHES_MMA = 0
+    before = obs.counters()
     for fn in (A.fused_amp_stage, A.fused_amp_stage_tc, A.fused_amp_stage_cl):
         assert torch.equal(fn(xb, spb, KS, DS), A.fused_amp_stage_plain(xb, spb, KS, DS))
-    assert A.LAUNCHES == A.LAUNCHES_TC == A.LAUNCHES_CL == A.LAUNCHES_MMA == 0
+    assert obs.counters() == before
 
 
 def mma_conv_from_fragments(h: torch.Tensor, frags: torch.Tensor, c: int, k: int, d: int,
@@ -396,16 +397,23 @@ def cuda_device():
     return torch.device("cuda:0")
 
 
+def launches() -> tuple:
+    """The recorder's AMP-stage launch totals: (f32 route, tensor-core route)."""
+    c = obs.counters()
+    return c.get("amp_stage.f32", 0), c.get("amp_stage.mma", 0)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("c,t", [(6, 1000), (24, 159744), (48, 79872), (64, 4000)])
 def test_kernel_matches_plain_on_card(cuda_device, c, t):
     """The sm_90a kernels against the plain version on the card: f32 on the
     CUDA-core kernel (TF32 off; atol 1e-4: f32 sums in another order over
-    18 convs), and bf16 on the tensor-core kernel (one launch, counted in
-    LAUNCHES and LAUNCHES_MMA) against the f32 plain result, no worse than
-    the plain bf16 path x1.02 over the whole output, the first and last 256
-    samples and the last (ragged but at T=159744) tile; K2a/K2b (one launch
-    per batch element) in f32 too. Each C launches at pick_tile_mma's tile,
+    18 convs; one launch, counted in the recorder's `amp_stage.f32`), and
+    bf16 on the tensor-core kernel (one launch, counted in `amp_stage.mma`)
+    against the f32 plain result, no worse than the plain bf16 path x1.02
+    over the whole output, the first and last 256 samples and the last
+    (ragged but at T=159744) tile; K2a/K2b (one launch per batch element)
+    in f32 too. Each C launches at pick_tile_mma's tile,
     so the kernel's shared-memory layout fits where smem_bytes_mma says."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -415,18 +423,20 @@ def test_kernel_matches_plain_on_card(cuda_device, c, t):
         sp = [{"sub": [{k: v.to(cuda_device) for k, v in s.items()} for s in blk["sub"]]}
               for blk in torch_stage_params(trees)]
         plain = A.fused_amp_stage_plain(x, sp, KS, DS, fast)
-        before = A.LAUNCHES
+        before = launches()
         out = A.fused_amp_stage(x, sp, KS, DS, fast=fast)
         torch.cuda.synchronize()
-        assert A.LAUNCHES == before + 1
+        assert launches() == (before[0] + 1, before[1])
         assert (out - plain).abs().max().item() < 1e-4
         for per_item in (A.fused_amp_stage_tc, A.fused_amp_stage_cl):
+            before = launches()
             assert (per_item(x, sp, KS, DS, fast=fast) - plain).abs().max().item() < 1e-4
+            assert launches() == (before[0] + x.shape[0], before[1])
         spb = [{"sub": [{k: v.bfloat16() for k, v in s.items()} for s in blk["sub"]]} for blk in sp]
-        before, before_mma = A.LAUNCHES, A.LAUNCHES_MMA
+        before = launches()
         kb = A.fused_amp_stage(x.bfloat16(), spb, KS, DS, fast=fast).float()
         torch.cuda.synchronize()
-        assert (A.LAUNCHES, A.LAUNCHES_MMA) == (before + 1, before_mma + 1)
+        assert launches() == (before[0], before[1] + 1)
         pb = A.fused_amp_stage_plain(x.bfloat16(), spb, KS, DS, fast).float()
         tile = A.pick_tile_mma(c, A.stage_radius(KS, DS))
         for lo, hi in ((0, t), (0, 256), (t - 256, t), ((t - 1) // tile * tile, t)):

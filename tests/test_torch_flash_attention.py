@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from audiolcm_torch import obs
 from audiolcm_torch.nn import flash_attention as F
 from audiolcm_torch.nn.attention import dot_product_attention
 from torch_threads import one_torch_thread  # noqa: F401  (autouse; tests/ is on sys.path)
@@ -141,10 +142,10 @@ def test_wrapper_dispatch_views_and_validation():
         (b, t, 3 * h * d)).astype(np.float32))
     q, k, v = (a.reshape(b, t, h, d).transpose(1, 2) for a in qkv.chunk(3, dim=-1))
     assert not q.is_contiguous()
-    F.LAUNCHES = F.LAUNCHES_TC = 0
+    before = obs.counters()
     out = F.flash_attention(q, k, v, d ** -0.5)
     F.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(), d ** -0.5)
-    assert F.LAUNCHES == F.LAUNCHES_TC == 0
+    assert obs.counters() == before
     np.testing.assert_allclose(out.numpy(), F.flash_attention_plain(
         q.contiguous(), k.contiguous(), v.contiguous(), d ** -0.5).numpy(), atol=ATOL)
     np.testing.assert_allclose(F.attention_auto(q, k, v, d ** -0.5).numpy(),
@@ -173,21 +174,24 @@ def test_kernel_matches_plain_on_card(cuda_device, shape):
     CUDA-core kernel (matmul TF32 off) at atol 2e-5, and bf16 on the
     tensor-core kernel (16-byte loads, or element-wise at D = 33) against
     the f32 plain result no worse than the plain bf16 path x1.02; one launch
-    per call, counted in LAUNCHES_TC for bf16 only."""
+    per call, counted in the recorder's `flash_attention.f32` for f32 and
+    `flash_attention.tc` for bf16."""
     torch.backends.cuda.matmul.allow_tf32 = False
     q, k, v = (torch.from_numpy(a).to(cuda_device) for a in _qkv(6, shape))
     scale = shape[-1] ** -0.5
     plain = F.flash_attention_plain(q, k, v, scale)
-    before, before_tc = F.LAUNCHES, F.LAUNCHES_TC
+    launches = lambda: (obs.counters().get("flash_attention.f32", 0),
+                        obs.counters().get("flash_attention.tc", 0))
+    before, before_tc = launches()
     out = F.flash_attention(q, k, v, scale)
     torch.cuda.synchronize()
-    assert (F.LAUNCHES, F.LAUNCHES_TC) == (before + 1, before_tc)
+    assert launches() == (before + 1, before_tc)
     assert (out - plain).abs().max().item() <= ATOL
     qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
     assert F.pick_route(qb, kb, vb) == ("tc_vec" if shape[-1] % 8 == 0 else "tc_elementwise")
     kern = F.flash_attention(qb, kb, vb, scale).float()
     torch.cuda.synchronize()
-    assert (F.LAUNCHES, F.LAUNCHES_TC) == (before + 2, before_tc + 1)
+    assert launches() == (before + 1, before_tc + 1)
     pb = F.flash_attention_plain(qb, kb, vb, scale).float()
     assert (kern - plain).abs().mean() <= (pb - plain).abs().mean() * 1.02
 
