@@ -14,9 +14,14 @@ inside. Stage dispatch follows the JAX package:
     sm_90a kernel on the card) when the kernel route of their dtype has a
     tile for that C (`amp_stage.route_takes`), and unfused otherwise, as
     JAX runs a stage unfused when no tile fits;
-  * stages with C <= `cf_max_channels` use the polyphase channels-first
+  * every alias-free activation of an unfused stage, and
+    `activation_post`, is one launch of the sm_90a kernel K5
+    (nn/alias_free_act.py) when x is on the card and no gradient is
+    recorded, whatever the stage's width;
+  * otherwise (on the CPU, or under autograd: the vocoder-GAN trainer),
+    stages with C <= `cf_max_channels` use the polyphase channels-first
     snake (`resample_cf.alias_free_snake_cf`), wider ones the depthwise-conv
-    alias-free activation — the same function up to float rounding;
+    alias-free activation — the same function up to float rounding, as is K5;
   * at batch 1, `fold_t_segments` >= 2 runs each unfused stage of
     resblock "1" as that many overlapping time segments (nn/fold.py) where
     `fold_legal` holds: exact;
@@ -35,6 +40,7 @@ import torch
 from torch import nn
 
 from audiolcm_torch import obs
+from audiolcm_torch.nn.alias_free_act import alias_free_act
 from audiolcm_torch.nn.amp_stage import fused_amp_stage, route_takes, stage_radius
 from audiolcm_torch.nn.fold import fold_legal, fold_time, stage_fold_halo, unfold_time
 from audiolcm_torch.nn.int8_conv import int8_conv1d_cl
@@ -93,7 +99,13 @@ class Activation1d(nn.Module):
         self.act = cls(channels, logscale, fast, channel_dim=1)
 
     def forward(self, x: torch.Tensor, polyphase: bool) -> torch.Tensor:
-        """(B, C, T); polyphase=True uses the channels-first snake form."""
+        """(B, C, T): K5 on the card without autograd; else polyphase=True
+        uses the channels-first snake form, False the depthwise-conv form."""
+        if x.is_cuda and not torch.is_grad_enabled():
+            act = self.act
+            beta = act.alpha if isinstance(act, Snake) else act.beta
+            # contiguous: the int8 route's convs hand back a transposed view
+            return alias_free_act(x.contiguous(), act.alpha, beta, act.alpha_logscale, act.fast)
         if polyphase:
             a, b = self.act.linear_params()
             return alias_free_snake_cf(x, a, b, fast=self.act.fast)

@@ -34,10 +34,10 @@ that counts what it drops. The names:
   built (its warm-up run and the capture).
 
 Counters (`count`), keyed by kernel and route: `amp_stage.mma`,
-`amp_stage.f32`, `flash_attention.tc`, `flash_attention.f32`, `act_chain`.
-A launch made while a graph captures (`capture()`) goes to the graph's
-`Tally`, which `launch()` adds to the totals once per replay, so a counter
-counts what ran. The recorder serves one host thread.
+`amp_stage.f32`, `flash_attention.tc`, `flash_attention.f32`, `act_chain`,
+`alias_free_act`. A launch made while a graph captures (`capture()`) goes
+to the graph's `Tally`, which `launch()` adds to the totals once per
+replay, so a counter counts what ran. The recorder serves one host thread.
 """
 
 from __future__ import annotations
@@ -50,7 +50,7 @@ from typing import Optional
 
 import torch
 
-RING_SPANS = 8192  # 1.7x the longest run's spans: ~380 batch-1 replays of 12 spans
+RING_SPANS = 1 << 15  # 2.4x the longest run's spans: ~1120 batch-1 replays of 12 spans
 RING_STAMPS = 1 << 16  # per device: 3200 replays of 10 stages
 
 _EPOCH_NS = time.time_ns() - time.perf_counter_ns()

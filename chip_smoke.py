@@ -23,12 +23,16 @@ Phases, one JSON line each; any failure raises and exits non-zero:
   4. time     — each kernel, its plain version, the bound and (K3) the
                 library call, bf16 (K1 also its device time in the profiler
                 and, for information, its 18 convs alone through cuDNN); the
-                unfused vocoder's two alias-free activation forms at every
-                stage width
+                alias-free activation at every stage width of a batch-8 10 s
+                and a batch-1 20 s generate (`act_forms`): the depthwise-conv
+                and polyphase forms, and K5 beside its bounds, with its f32
+                and bf16 errors against its plain version
   5. generate — the LCM serving pipeline at full width (random weights from
                 a seed): batch 1 f32 with the fused stage against the
                 unfused vocoder (before the final tanh); then the batch-8
-                10 s generate with the launch counts of its path, ms per
+                10 s generate with the launch counts of its path (K1 2, K5
+                73; every later phase holds K5 to one launch per activation
+                of each no-grad vocoder forward on the card), ms per
                 generate, x realtime and a per-layer breakdown; the same
                 generate with use_flash=True (launch counts, ms); then the
                 serving vocoder at knob 96 against knob 48 (`knob`); the
@@ -130,6 +134,7 @@ KS, DS = (3, 7, 11), (1, 3, 5)
 F32_TOL = 1e-4  # f32 kernel vs plain: same math, sums in another order
 WAV_TOL = 1e-4  # batch-1 f32 pre-tanh waveform, fused stage vs unfused vocoder
 FLASH_TOL = 2e-5  # K3 f32 vs plain: the JAX bar (tests/test_pallas_attention.py:26)
+K5_F32_TOL = 1e-5  # K5 f32 vs plain: one activation, its sums in another order
 DIT_TOL = 1e-4  # f32 DiT eps, flash vs einsum: attention sums in another order, 4 blocks
 # f32 VAE moments, card vs CPU, relative to max|moments|: ~20 convs and one
 # softmax attention summed in another order by cuDNN and the CPU kernels
@@ -471,22 +476,68 @@ def time_phase(device, shapes, card: dict) -> dict:
 
 
 def act_forms_phase(device, card: dict) -> list:
-    """The unfused vocoder's two forms of one alias-free SnakeBeta — the
-    depthwise-conv form and the polyphase channels-first form — timed at
-    every stage width of a batch-8 10 s generate, bf16, fast snake."""
+    """One alias-free SnakeBeta at every stage width of a batch-8 10 s and a
+    batch-1 20 s generate (the vocoder's stages: C = 768..96 unfused in
+    serving, and activation_post at C = 24), bf16, fast snake, a log-scale
+    SnakeBeta at the vocoder's init. Timed by CUDA events: the
+    depthwise-conv form, the polyphase channels-first form, and K5
+    (nn/alias_free_act.py), also by its device time; K5's bound
+    (act_bound_ms: x read once and out written once over the HBM rate) and
+    its f32 CUDA-core bound. K5's errors, as tests/test_torch_alias_free_act.py
+    holds them: f32 max abs against the f32 plain version <= K5_F32_TOL;
+    bf16 mean error against the f32 plain version (same bf16 input and
+    parameters) at most 1.02x the depthwise bf16 form's; one launch per
+    call of Activation1d."""
+    from audiolcm_torch import obs
     from audiolcm_torch.models.bigvgan import Activation1d, BigVGANConfig
+    from audiolcm_torch.nn import alias_free_act as K
+    from audiolcm_torch.nn.resample import alias_free_activation_cf
+    from audiolcm_torch.nn.resample_cf import alias_free_snake_cf
 
-    cfg, t, rows = BigVGANConfig(fast_snake=True), 624, []
-    for i, u in enumerate(cfg.upsample_rates):
-        c, t = cfg.upsample_initial_channel // 2 ** (i + 1), t * u
-        act = Activation1d(c, cfg.activation, cfg.snake_logscale, fast=True).to(device)
-        x = torch.randn(8, c, t, device=device, dtype=torch.bfloat16)
-        with torch.inference_mode():
-            ms = {form: event_ms(lambda: act(x, poly), iters=5)
-                  for form, poly in (("depthwise_ms", False), ("polyphase_ms", True))}
-        row = {"C": c, "T": t, "batch": 8, **ms, "card": card["nvidia_smi"]}
-        emit({"phase": "act_forms", **row})
-        rows.append(row)
+    cfg, rows = BigVGANConfig(fast_snake=True), []
+    gen = torch.Generator().manual_seed(16)
+    for batch, mel in ((8, 624), (1, 1248)):
+        t = mel
+        for i, u in enumerate(cfg.upsample_rates):
+            c, t = cfg.upsample_initial_channel // 2 ** (i + 1), t * u
+            act = Activation1d(c, cfg.activation, cfg.snake_logscale, fast=True)
+            with torch.no_grad():
+                for p in act.act.parameters():
+                    p.copy_(0.1 * torch.randn(c, generator=gen))
+            act = act.to(device=device, dtype=torch.bfloat16)
+            alpha, beta = act.act.alpha, act.act.beta
+            x = torch.randn(batch, c, t, device=device, dtype=torch.bfloat16)
+            kernel = lambda: K.alias_free_act(x, alpha, beta, True, True)  # noqa: E731
+            with torch.inference_mode():
+                a_lin, b_lin = act.act.linear_params()
+                row = {"C": c, "T": t, "batch": batch, "tile": K.pick_tile(t),
+                       "depthwise_ms": event_ms(lambda: alias_free_activation_cf(x, act.act),
+                                                iters=5),
+                       "polyphase_ms": event_ms(
+                           lambda: alias_free_snake_cf(x, a_lin, b_lin, fast=True), iters=5),
+                       "kernel_ms": event_ms(kernel, iters=20, warmup=2),
+                       "kernel_device_ms": kernel_device_ms(kernel, "alias_free_act_kernel", 20)}
+                want = K.alias_free_act_plain(x.float(), alpha.float(), beta.float(), True, True)
+                n0 = obs.counters().get("alias_free_act", 0)
+                kb = act(x, False).float()
+                sync(device)
+                row["launches"] = obs.counters().get("alias_free_act", 0) - n0
+                row["bf16_mean_err"] = (kb - want).abs().mean().item()
+                row["depthwise_bf16_mean_err"] = (alias_free_activation_cf(x, act.act).float()
+                                                  - want).abs().mean().item()
+                row["f32_max_abs_err"] = (K.alias_free_act(
+                    x.float(), alpha.float(), beta.float(), True, True) - want).abs().max().item()
+            row["bound_ms"], row["bound_by"] = act_bound_ms(batch, c, t, 1, 2)
+            row["f32_bound_ms"] = act_f32_bound_ms(batch, c, t, 1)
+            row.update(bound_share=row["bound_ms"] / row["kernel_ms"],
+                       f32_bound_share=row["f32_bound_ms"] / row["kernel_ms"],
+                       f32_tol=K5_F32_TOL, card=card["nvidia_smi"])
+            emit({"phase": "act_forms", **row})
+            if not (row["f32_max_abs_err"] <= K5_F32_TOL and row["launches"] == 1
+                    and row["bf16_mean_err"] <= 1.02 * row["depthwise_bf16_mean_err"]):
+                raise AssertionError(f"alias_free_act disagrees with its plain version: {row}")
+            rows.append(row)
+            del x, want, kb
     return rows
 
 
@@ -773,16 +824,35 @@ def build_modules(device, full: bool, fast_snake: bool = True):
 
 # the recorder's launch counters (audiolcm_torch.obs), by kernel and route
 COUNTERS = ("amp_stage.mma", "amp_stage.f32", "flash_attention.tc", "flash_attention.f32",
-            "act_chain")
+            "act_chain", "alias_free_act")
 _counts_base: dict = {}
+_k5_due = 0  # K5 launches owed by the eager vocoder forwards since reset_counts()
+
+
+def track_k5_due() -> None:
+    """Makes every BigVGAN forward add the K5 launches it owes (k5_launches:
+    one per activation outside a fused stage, on the card without autograd)
+    to `_k5_due`. A replayed graph runs no forward, so this counts eager
+    forwards only."""
+    from audiolcm_torch.models.bigvgan import BigVGAN
+
+    forward = BigVGAN.forward
+
+    def owing(self, mel):
+        global _k5_due
+        _k5_due += k5_launches(self, next(self.parameters()).dtype,
+                               mel.is_cuda and not torch.is_grad_enabled())
+        return forward(self, mel)
+
+    BigVGAN.forward = owing
 
 
 def reset_counts() -> None:
     """Marks the launch totals that read_counts() counts from."""
     from audiolcm_torch import obs
 
-    global _counts_base
-    _counts_base = obs.counters()
+    global _counts_base, _k5_due
+    _counts_base, _k5_due = obs.counters(), 0
 
 
 def read_counts() -> dict:
@@ -791,6 +861,20 @@ def read_counts() -> dict:
 
     now = obs.counters()
     return {k: now.get(k, 0) - _counts_base.get(k, 0) for k in COUNTERS}
+
+
+def k5_launches(vocoder, dtype, on_card: bool) -> int:
+    """K5 launches of one vocoder forward on the card without autograd: each
+    activation of an unfused stage, and activation_post (73 in the serving
+    vocoder, whose stages C <= 48 are fused)."""
+    if not on_card:
+        return 0
+    cfg = vocoder.config
+    nk = len(cfg.resblock_kernel_sizes)
+    unfused = [i for i in range(len(cfg.upsample_rates))
+               if not vocoder._fused(cfg.upsample_initial_channel >> (i + 1), dtype)]
+    return 1 + sum(len(vocoder.resblocks[i * nk + j].activations)
+                   for i in unfused for j in range(nk))
 
 
 def counts_with(**nonzero) -> dict:
@@ -851,9 +935,10 @@ def generate_phase(device, mods, full: bool, card: dict) -> dict:
     launches = read_counts()
     expect = (batch, latent * 2 * 256)
     on_card = device.type == "cuda"
+    n_k5 = k5_launches(mods.vocoder, torch.bfloat16, on_card)
     ok = (tuple(wav.shape) == expect and bool(torch.isfinite(wav).all())
           and wav.abs().max().item() <= 1.0
-          and launches == counts_with(amp_stage_mma=2 if on_card else 0))
+          and launches == counts_with(amp_stage_mma=2 if on_card else 0, alias_free_act=n_k5))
     row = {"batch": batch, "wav_shape": list(wav.shape), "mel_shape": list(mel.shape),
            "finite": bool(torch.isfinite(wav).all()), "wav_abs_max": wav.abs().max().item(),
            "wav_std": wav.std().item(),
@@ -891,7 +976,8 @@ def generate_phase(device, mods, full: bool, card: dict) -> dict:
     set_flash(pipe.modules.dit, False)
     n_flash = 2 * len(pipe.modules.dit.blocks) * 2 if on_card else 0  # 2 LCM steps
     if row["launches_with_flash"] != counts_with(amp_stage_mma=2 if on_card else 0,
-                                                 flash_attention_tc=n_flash):
+                                                 flash_attention_tc=n_flash,
+                                                 alias_free_act=n_k5):
         raise AssertionError(f"LCM generate with flash: {row['launches_with_flash']}")
     emit({"phase": "generate", **row})
     return row
@@ -1101,8 +1187,8 @@ def native_ckpt_phase(device, mods, full: bool, card: dict, tmp: str) -> dict:
     the same knobs; its batch-8 10 s generate from one set of ids, x_T and
     noise before and after, bit for bit, with cuDNN deterministic (and
     twice before, the card's own repeat). The save and load seconds and
-    the bytes on disk. The generate launches K1 as the serving path does
-    (2, both on its tensor-core kernel), K3 and K4 none."""
+    the bytes on disk. The generate launches K1 and K5 as the serving path
+    does (2, both on K1's tensor-core kernel; 73), K3 and K4 none."""
     import os
 
     from audiolcm_torch import native_ckpt
@@ -1149,7 +1235,8 @@ def native_ckpt_phase(device, mods, full: bool, card: dict, tmp: str) -> dict:
     emit({"phase": "native_ckpt", **row})
     del fresh, loaded
     if not (row["repeat_equal"] and row["bit_exact_after_load"]
-            and counts == counts_with(amp_stage_mma=k1)):
+            and counts == counts_with(amp_stage_mma=k1, alias_free_act=k5_launches(
+                mods.vocoder, torch.bfloat16, on_card))):
         raise AssertionError(f"native_ckpt: the loaded pipeline differs: {row}")
     return row
 
@@ -1305,7 +1392,8 @@ def teacher_phase(device, mods, full: bool, card: dict) -> dict:
            "finite": bool(torch.isfinite(wav).all()), "wav_abs_max": wav.abs().max().item(),
            "wav_std": wav.std().item(), "launches": launches}
     n_flash = n_attn * n_steps if on_card else 0
-    want = counts_with(amp_stage_mma=2 if on_card else 0, flash_attention_tc=n_flash)
+    want = counts_with(amp_stage_mma=2 if on_card else 0, flash_attention_tc=n_flash,
+                       alias_free_act=k5_launches(mods.vocoder, torch.bfloat16, on_card))
     if not (tuple(wav.shape) == expect and row["finite"] and row["wav_abs_max"] <= 1.0
             and launches == want):
         emit({"phase": "teacher", **row})
@@ -1648,7 +1736,8 @@ def prewarm_phase(device, mods, full: bool, card: dict) -> dict:
     emit({"phase": "prewarm", **row})
     if not (all(h == "captured" for h in hows.values()) and len(hows) == 4 and diff <= REPLAY_TOL
             and row["k1_launches_per_replay"] == 2
-            and replay_counts == counts_with(amp_stage_mma=2)
+            and replay_counts == counts_with(
+                amp_stage_mma=2, alias_free_act=k5_launches(mods.vocoder, torch.bfloat16, True))
             and bool(torch.isfinite(wav_r).all())):
         raise AssertionError(f"prewarm: {row}")
     pipe._graphs.clear()
@@ -1943,14 +2032,17 @@ def train_phase(device, mods, full: bool, card: dict, kind: str) -> dict:
 
 
 def training_counts_zero(kind: str) -> dict:
-    """The launch counts since reset_counts(), every one 0: a trainer (and
-    the eval phases: the scorers, and the acceptance generate at stage
-    knob 0; every phase whose path holds no TPU-kernel counterpart) runs
-    BigVGAN unfused and the DiT on einsum attention, so K1, K3 and K4 must
-    not have launched."""
+    """The launch counts since reset_counts(): a trainer (and the eval
+    phases: the scorers, and the acceptance generate at stage knob 0; every
+    phase whose path holds no TPU-kernel counterpart) runs BigVGAN unfused
+    and the DiT on einsum attention, so K1, K3 and K4 must not have
+    launched; K5 must have launched as often as its vocoder forwards owed
+    (`_k5_due`: a discriminator step draws the generator's waveform
+    without autograd)."""
     counts = read_counts()
-    if any(counts.values()):
-        raise AssertionError(f"{kind}: a kernel launched in a phase that runs none: {counts}")
+    if counts != counts_with(alias_free_act=_k5_due):
+        raise AssertionError(f"{kind}: launches {counts}, expected none but K5's "
+                             f"{_k5_due}")
     return counts
 
 
@@ -3678,14 +3770,15 @@ def _tensors(sd) -> list:
 
 
 def kernels_line(checks, k2_checks, flash_checks, times, k2_times, flash_time, gen_row,
-                 teacher_row, act_checks, act_times, interior, build_row) -> dict:
+                 teacher_row, act_checks, act_times, interior, build_row, act_forms) -> dict:
     """One entry per kernel: launches on its path (K1: the LCM generate,
     every one on its tensor-core kernel, launches_mma; K3: the teacher
-    generate; K4: the profiler run; K2a/K2b lie on none),
-    the largest f32 error of its checks, and this run's times (K1/K2: both
-    fused stages of one batch-8 generate, summed; K3: one launch at the
+    generate; K4: the profiler run; K5: the LCM generate; K2a/K2b lie on
+    none), the largest f32 error of its checks, and this run's times (K1/K2:
+    both fused stages of one batch-8 generate, summed; K3: one launch at the
     teacher's shape; K4: its four profiler launches, n_rep 2 and 6 at both
-    shapes, summed)."""
+    shapes, summed; K5: the 73 launches of one batch-8 generate, 18 per
+    unfused stage and one for activation_post, from the act_forms rows)."""
     measured = bool(times)
     nm = "not measured"
     stage_shapes = sorted({(r["C"], r["T"]) for r in times.values()}, reverse=True)
@@ -3752,6 +3845,23 @@ def kernels_line(checks, k2_checks, flash_checks, times, k2_times, flash_time, g
                 "bound_by": act_times[0]["bound_by"] if act_times else nm, "library_ms": None,
                 "library_note": "no single PyTorch call computes a chain of alias-free SnakeBetas",
                 "per_case": act_times})
+    b8 = [r for r in act_forms if r["batch"] == 8]
+    per_request = lambda key: (sum(18 * r[key] for r in b8 if r["C"] >= 96)  # noqa: E731
+                               + sum(r[key] for r in b8 if r["C"] == 24)) if b8 else nm
+    out.append({"name": "alias_free_act", "route": "cuda",
+                "source": "audiolcm_torch/csrc/alias_free_act.cu",
+                "replaces": "no Pallas kernel: the jnp chain audiolcm_tpu/nn/resample.py:212 "
+                            "alias_free_activation",
+                "launches": gen_row["launches"]["alias_free_act"],
+                "max_abs_err": max((r["f32_max_abs_err"] for r in act_forms), default=nm),
+                "bf16_mean_err_ratio_max": max((r["bf16_mean_err"] / r["depthwise_bf16_mean_err"]
+                                                for r in act_forms), default=nm),
+                "ms": per_request("kernel_ms"), "device_ms": per_request("kernel_device_ms"),
+                "plain_ms": per_request("polyphase_ms"),
+                "depthwise_ms": per_request("depthwise_ms"), "bound_ms": per_request("bound_ms"),
+                "f32_bound_ms": per_request("f32_bound_ms"), "library_ms": None,
+                "library_note": "no single PyTorch call computes an alias-free SnakeBeta",
+                "per_case": act_forms})
     return {"kernels": out}
 
 
@@ -3773,6 +3883,7 @@ def main(argv=None) -> int:
     mark = lambda name: marks.append((name, time.time()))
     card = card_phase(device)
     emit({"phase": "card", **card})
+    track_k5_due()
     build_row = {}
     if not rehearsal:
         build_row = build_phase()
@@ -3796,13 +3907,13 @@ def main(argv=None) -> int:
     flash_checks = check_flash_phase(device, flash_cases)
     act_checks = check_act_phase(device, shapes, rehearsal)
     mark("check")
-    times, k2_times, flash_time, act_times = {}, {}, {}, []
+    times, k2_times, flash_time, act_times, act_forms = {}, {}, {}, [], []
     if not rehearsal:
         times = time_phase(device, shapes[:2], card)
         k2_times = time_k2_phase(device, shapes[:2], card)
         flash_time = time_flash_phase(device, (16, 8, 467, 72), card)
         act_times = time_act_phase(device, shapes[:2], card)
-        act_forms_phase(device, card)
+        act_forms = act_forms_phase(device, card)
     mark("time")
     mods = build_modules(device, full=not rehearsal)
     gen_row = generate_phase(device, mods, full=not rehearsal, card=card)
@@ -3858,7 +3969,7 @@ def main(argv=None) -> int:
     emit({"phase": "seconds", "total": marks[-1][1] - marks[0][1],
           "by_phase": {n: t - marks[i][1] for i, (n, t) in enumerate(marks[1:])}})
     line = kernels_line(checks, k2_checks, flash_checks, times, k2_times, flash_time, gen_row,
-                        teacher_row, act_checks, act_times, interior, build_row)
+                        teacher_row, act_checks, act_times, interior, build_row, act_forms)
     line["kernels"][0]["launches_per_captured_replay"] = prewarm_row.get(
         "k1_launches_per_replay", "not measured")
     k3 = next(k for k in line["kernels"] if k["name"] == "flash_attention")

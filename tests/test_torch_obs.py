@@ -3,7 +3,7 @@ stages under it, one `ddim.step` per teacher step, the span ring's bound,
 host stamps on torch.profiler's clock, launches counted per replay of a
 capture, and the bookkeeping of the stages' device stamps, here with the
 host clock standing in for the card's timer (`HostStamps`). On the card
-(`-m gpu`): a replay's stage times sum to the replay, and K1 and K3 count
+(`-m gpu`): a replay's stage times sum to the replay, and K1, K3 and K5 count
 as many launches per replay as per eager call."""
 
 import time
@@ -306,5 +306,7 @@ def test_k1_and_k3_count_as_many_launches_per_replay_as_per_eager_call(card_pipe
     replay, eager = requests(obs.snapshot())
     assert (replay["kind"], eager["kind"]) == ("replay", "eager")
     n_flash = 2 * 2 * len(pipe.modules.dit.blocks)  # 2 LCM steps, 2 self-attentions a block
+    # K5: 18 activations in each of the four unfused stages, and activation_post
     assert replay["counts"] == eager["counts"] == {"amp_stage.mma": 2,
-                                                    "flash_attention.tc": n_flash}
+                                                    "flash_attention.tc": n_flash,
+                                                    "alias_free_act": 73}
