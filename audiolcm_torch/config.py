@@ -16,6 +16,7 @@ arguments. Modules are built on the CPU in float32; the caller moves them.
 from __future__ import annotations
 
 import dataclasses
+import inspect
 from typing import Any, Callable, Dict
 
 from audiolcm_torch.models.bigvgan import BigVGAN, BigVGANConfig
@@ -35,6 +36,10 @@ def load_yaml(path: str) -> dict:
         return yaml.safe_load(f)
 
 
+# the serving knobs a denoiser's constructor may take
+SERVING_KNOBS = ("use_flash", "fuse_qkv")
+
+
 @dataclasses.dataclass(frozen=True)
 class DiTSpec:
     """A denoiser's class and its constructor arguments."""
@@ -43,13 +48,29 @@ class DiTSpec:
     kwargs: dict
 
     def build(self, **knobs):
-        return self.cls(**self.kwargs, **knobs)
+        """The denoiser with the serving knobs (`SERVING_KNOBS`) its
+        constructor takes. A knob it does not take is dropped when off (False
+        or None) and refused with a TypeError when on, as is a name that is
+        no serving knob."""
+        unknown = sorted(set(knobs) - set(SERVING_KNOBS))
+        if unknown:
+            raise TypeError(f"{unknown} are not serving knobs (known: {sorted(SERVING_KNOBS)})")
+        params = inspect.signature(self.cls).parameters
+        takes = {k: v for k, v in knobs.items() if k in params}
+        refused = sorted(k for k, v in knobs.items() if k not in takes and v)
+        if refused:
+            taken = sorted(k for k in SERVING_KNOBS if k in params)
+            raise TypeError(f"{self.cls.__name__} does not take the serving knob(s) {refused}; "
+                            f"it takes {taken or 'none'}")
+        return self.cls(**self.kwargs, **takes)
 
 
 def _dit(cls: type) -> Callable[[dict], DiTSpec]:
     """The kwargs the JAX registry reads for `cls` (`audiolcm_tpu/config.py:
     30-43,104-134`): out_channels for ConcatDiT2MLP only, the grouped-KV,
-    FF-width and qk-norm knobs for TxtFlagLargeDiT only."""
+    FF-width and qk-norm knobs for TxtFlagLargeDiT only; for the latter also
+    the reference's `ffn_dim_multiplier` and `norm_eps`, which the JAX
+    registry drops."""
 
     def parse(p: dict) -> DiTSpec:
         kw = dict(in_channels=p["in_channels"], context_dim=p["context_dim"],
@@ -59,7 +80,8 @@ def _dit(cls: type) -> Callable[[dict], DiTSpec]:
             kw["out_channels"] = p.get("out_channels")
         elif cls is TxtFlagLargeDiT:
             kw.update(n_kv_heads=p.get("n_kv_heads"), multiple_of=p.get("multiple_of", 256),
-                      qk_norm=bool(p.get("qk_norm") or False))
+                      ffn_dim_multiplier=p.get("ffn_dim_multiplier"),
+                      norm_eps=p.get("norm_eps", 1e-5), qk_norm=bool(p.get("qk_norm") or False))
         return DiTSpec(cls, kw)
 
     return parse
@@ -222,8 +244,8 @@ class DiffusionSystemConfig:
     base_learning_rate: float = 3.0e-6
 
     def build_dit(self, **knobs):
-        """The class the unet_config names; knobs (use_flash, fuse_qkv) only
-        where that class has them (ConcatDiT2MLP)."""
+        """The class the unet_config names, with the serving knobs
+        (use_flash, fuse_qkv) it takes (`DiTSpec.build`)."""
         return self.dit.build(**knobs)
 
     def build_vae(self):

@@ -1,18 +1,23 @@
-// Flash self-attention for Hopper (sm_90a): two kernels in one source.
+// Flash attention for Hopper (sm_90a): two kernels in one source.
 //
 // Replaces the TPU kernel audiolcm_tpu/nn/pallas_attention.py:72
 // flash_attention (_flash_kernel): out = softmax(q k^T * scale) v over
-// (B, H, T, D), blockwise with the online softmax, so the T x T logits never
-// reach device memory. Keys >= T are masked to -1e30, the output is
-// acc / max(l, 1e-30) rounded once to q's type, and query rows >= T are
-// never written. q, k, v and out are addressed through explicit (b, h, t, d)
-// element strides, so head-split transposes and the chunk views of a fused
-// qkv projection need no copy, and the output goes straight into the
-// (B, T, H, D) layout the output projection reads.
+// q (B, H, T, D) and k, v (B, H, Tk, D), blockwise with the online softmax,
+// so the T x Tk logits never reach device memory. Self-attention has
+// Tk = T; a cross-attention (the Flag DiT's caption branch: 312 queries
+// against 154 keys) has its own Tk, and every key loop, tile count and
+// mask below runs over Tk, every query row over T. Keys >= Tk are masked to
+// -1e30, the output is acc / max(l, 1e-30) rounded once to q's type, and
+// query rows >= T are never written. q, k, v and out are addressed
+// through explicit (b, h, t, d) element strides, so head-split transposes
+// and the chunk views of a fused qkv projection need no copy, and the
+// output goes straight into the (B, T, H, D) layout the output projection
+// reads.
 //
-// What bounds it on this card: at the DiT's shapes (T = 467, D = 72) bytes:
-// q, k, v read once and the output written once is 8*B*H*T*D bytes in bf16,
-// against 4*B*H*T^2*D FLOP at the bf16 tensor-core rate.
+// What bounds it on this card: at the DiTs' shapes (T = 467 or 312,
+// Tk = T or 154, D = 72) bytes: q, k, v read once and the output written
+// once is 2*B*H*(2T + 2Tk)*D bytes in bf16, against 4*B*H*T*Tk*D FLOP at
+// the bf16 tensor-core rate.
 //
 // bf16 (flash_attention_tc_kernel, FlashAttention-2's shape on the tensor
 // cores, mma.sync m16n8k16 bf16 -> f32 with ldmatrix):
@@ -24,7 +29,7 @@
 //     (72 = 9 tiles, no pad);
 //   * K and V tiles of 64 keys in a two-stage shared-memory ring, filled by
 //     16-byte cp.async copies, so tile j+1 loads while tile j computes; keys
-//     >= T are zero-filled (src-size 0) and their logits set to -1e30;
+//     >= Tk are zero-filled (src-size 0) and their logits set to -1e30;
 //     shared rows are (2*KS+1)*16 bytes apart (176 B at D = 72), an odd
 //     number of 16-byte units, so the 8 rows of an ldmatrix hit 8 distinct
 //     bank groups; V's B-fragments come from ldmatrix.trans;
@@ -78,7 +83,7 @@ struct FlashArgs {
   const void* v;
   void* out;
   long long sq[4], sk[4], sv[4], so[4];  // element strides over (b, h, t, d)
-  int H, T, D;
+  int H, T, Tk, D;  // T queries, Tk keys and values
   float scale;
 };
 
@@ -116,8 +121,8 @@ flash_attention_f32_kernel(const FlashArgs a) {
   }
   float m = NEG_INF, l = 0.f;
 
-  for (int k0 = 0; k0 < T; k0 += BK) {
-    const int nk = min(BK, T - k0);
+  for (int k0 = 0; k0 < a.Tk; k0 += BK) {
+    const int nk = min(BK, a.Tk - k0);
     __syncthreads();  // the previous tile is no longer read
     for (int idx = threadIdx.x; idx < BK * DP; idx += F32_THREADS) {
       const int key = idx / DP, d = idx % DP;
@@ -304,7 +309,7 @@ flash_attention_tc_kernel(const FlashArgs a) {
   bf16* Ks = Qs + TC_BQ * LD;  // two stages
   bf16* Vs = Ks + 2 * TILE;    // two stages
 
-  const int T = a.T, D = a.D;
+  const int T = a.T, Tk = a.Tk, D = a.D;
   const int b = blockIdx.y / a.H, h = blockIdx.y % a.H;
   const int q0 = blockIdx.x * TC_BQ;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -321,8 +326,8 @@ flash_attention_tc_kernel(const FlashArgs a) {
       *reinterpret_cast<uint4*>(Qs + (i / pad) * LD + 8 * (DC + i % pad)) = make_uint4(0, 0, 0, 0);
   }
   load_rows<VEC, LD, TC_BQ>(Qs, qp, a.sq[2], a.sq[3], q0, T, D);
-  load_rows<VEC, LD, BK>(Ks, kp, a.sk[2], a.sk[3], 0, T, D);
-  load_rows<VEC, LD, BK>(Vs, vp, a.sv[2], a.sv[3], 0, T, D);
+  load_rows<VEC, LD, BK>(Ks, kp, a.sk[2], a.sk[3], 0, Tk, D);
+  load_rows<VEC, LD, BK>(Vs, vp, a.sv[2], a.sv[3], 0, Tk, D);
   cp_async_commit();
 
   // ldmatrix lane offsets: A (Q) rows/cols, K's B pairs, V's transposed B pairs
@@ -336,15 +341,15 @@ flash_attention_tc_kernel(const FlashArgs a) {
   for (int n = 0; n < NV; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
   float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;  // rows g and g + 8
 
-  const int n_tiles = (T + BK - 1) / BK;
+  const int n_tiles = (Tk + BK - 1) / BK;
   for (int j = 0; j < n_tiles; ++j) {
     const bf16* Kt = Ks + (j & 1) * TILE;
     const bf16* Vt = Vs + (j & 1) * TILE;
     if (j + 1 < n_tiles) {
       bf16* Kn = Ks + ((j + 1) & 1) * TILE;
       bf16* Vn = Vs + ((j + 1) & 1) * TILE;
-      load_rows<VEC, LD, BK>(Kn, kp, a.sk[2], a.sk[3], (j + 1) * BK, T, D);
-      load_rows<VEC, LD, BK>(Vn, vp, a.sv[2], a.sv[3], (j + 1) * BK, T, D);
+      load_rows<VEC, LD, BK>(Kn, kp, a.sk[2], a.sk[3], (j + 1) * BK, Tk, D);
+      load_rows<VEC, LD, BK>(Vn, vp, a.sv[2], a.sv[3], (j + 1) * BK, Tk, D);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -370,15 +375,15 @@ flash_attention_tc_kernel(const FlashArgs a) {
       }
     }
 
-    // scale in f32 (log2 domain), mask keys >= T, online softmax
-    const bool tail = (j + 1) * BK > T;
+    // scale in f32 (log2 domain), mask keys >= Tk, online softmax
+    const bool tail = (j + 1) * BK > Tk;
     float mx0 = m0, mx1 = m1;
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         s[n][e] *= sl2;
-        if (tail && j * BK + n * 8 + 2 * t4 + (e & 1) >= T) s[n][e] = NEG_INF;
+        if (tail && j * BK + n * 8 + 2 * t4 + (e & 1) >= Tk) s[n][e] = NEG_INF;
       }
       mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
       mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
@@ -506,13 +511,14 @@ static bool vec_ok(const void* p, const long long* s, int B, int H, int T) {
 }
 
 // Returns the CUDA error code of the launch (0 = launched).
-// strides: 16 element strides, (b, h, t, d) of q, k, v and out in that order.
+// strides: 16 element strides, (b, h, t, d) of q, k, v and out in that order;
+// T counts the rows of q and out, Tk those of k and v.
 // route: ROUTE_F32 (f32 tensors, CUDA cores), ROUTE_TC_VEC or
 // ROUTE_TC_ELEMENTWISE (bf16 tensors, tensor cores).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
-                                      const long long* strides, int B, int H, int T, int D,
-                                      float scale, int route, void* stream) {
-  if (B < 1 || H < 1 || T < 1 || D < 1 || D > 128) return (int)cudaErrorInvalidValue;
+                                      const long long* strides, int B, int H, int T, int Tk,
+                                      int D, float scale, int route, void* stream) {
+  if (B < 1 || H < 1 || T < 1 || Tk < 1 || D < 1 || D > 128) return (int)cudaErrorInvalidValue;
   FlashArgs a;
   a.q = q; a.k = k; a.v = v; a.out = out;
   for (int i = 0; i < 4; ++i) {
@@ -521,14 +527,14 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
     a.sv[i] = strides[8 + i];
     a.so[i] = strides[12 + i];
   }
-  a.H = H; a.T = T; a.D = D; a.scale = scale;
+  a.H = H; a.T = T; a.Tk = Tk; a.D = D; a.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (route) {
     case ROUTE_F32:
       return launch_f32_d(a, B, s);
     case ROUTE_TC_VEC:
-      if (D % 8 != 0 || !vec_ok(q, a.sq, B, H, T) || !vec_ok(k, a.sk, B, H, T) ||
-          !vec_ok(v, a.sv, B, H, T) || !vec_ok(out, a.so, B, H, T))
+      if (D % 8 != 0 || !vec_ok(q, a.sq, B, H, T) || !vec_ok(k, a.sk, B, H, Tk) ||
+          !vec_ok(v, a.sv, B, H, Tk) || !vec_ok(out, a.so, B, H, T))
         return (int)cudaErrorInvalidValue;
       return launch_tc_d<true>(a, B, s);
     case ROUTE_TC_ELEMENTWISE:

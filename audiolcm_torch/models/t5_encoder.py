@@ -75,7 +75,8 @@ class RMSNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.to(torch.float32)
         y = xf * torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + self.eps)
-        return (self.weight.to(torch.float32) * y).to(self.weight.dtype)
+        # a bf16 weight promotes to f32 inside the multiply: no cast launch
+        return (y * self.weight).to(self.weight.dtype)
 
 
 class _SelfAttention(nn.Module):

@@ -37,7 +37,7 @@ LAYOUT_KNOBS = {"dit": ("fuse_qkv",), "clap_text": ("fuse_proj",), "t5": ("fuse_
 
 def layout_knobs(modules: PipelineModules) -> dict:
     """{module name: {knob: value}} for every module the pipeline holds."""
-    return {name: {k: getattr(m, k) for k in LAYOUT_KNOBS.get(name, ())}
+    return {name: {k: getattr(m, k) for k in LAYOUT_KNOBS.get(name, ()) if hasattr(m, k)}
             for name, m in modules.items()}
 
 

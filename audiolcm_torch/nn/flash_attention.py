@@ -1,6 +1,7 @@
-"""Flash self-attention: the CUDA kernels of K3 (`csrc/flash_attention.cu`),
+"""Flash attention: the CUDA kernels of K3 (`csrc/flash_attention.cu`),
 their plain PyTorch version, and the bf16 kernel's blockwise algorithm in
-torch.
+torch. Self-attention, and cross-attention whose keys and values have a
+length of their own (the Flag DiT's caption branch).
 
 It replaces the TPU kernel `audiolcm_tpu/nn/pallas_attention.py:flash_attention`.
 
@@ -15,12 +16,15 @@ It replaces the TPU kernel `audiolcm_tpu/nn/pallas_attention.py:flash_attention`
   * `flash_attention_blocked` — the tensor-core kernel's algorithm (64-key
     tiles, one online-softmax step per tile, scale on the f32 logits, masked
     tail, bf16 P split into hi + lo, division by max(l, 1e-30) at the end)
-    in torch, so the CPU tests hold the kernel's decomposition against the
+    in torch, over k's own length Tk, so the CPU tests hold the kernel's decomposition against the
     JAX package.
   * `attention_auto` — the JAX dispatcher: the kernel on the card, the
     einsum `dot_product_attention` elsewhere.
 
-Layout: q, k, v (B, H, T, D) in any strides; the result is (B, H, T, D).
+Layout: q (B, H, T, D), k and v (B, H, Tk, D), in any strides; the result
+is (B, H, T, D). Every launch counts in the recorder (`obs`) under its
+route, `flash_attention.tc` or `.f32`, and a launch whose keys number other
+than its queries also under `CROSS_COUNTER`.
 """
 
 from __future__ import annotations
@@ -37,11 +41,13 @@ MAX_D = 128
 NEG_INF = -1e30
 # route codes of csrc/flash_attention.cu's flash_attention_launch
 ROUTES = {"cuda_core": 0, "tc_vec": 1, "tc_elementwise": 2}
+CROSS_COUNTER = "flash_attention.cross"
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           scale: float) -> torch.Tensor:
-    """(B, H, T, D) x3 -> (B, H, T, D): f32 inside, output in q's dtype."""
+    """q (B, H, T, D), k, v (B, H, Tk, D) -> (B, H, T, D): f32 inside, output
+    in q's dtype."""
     logits = torch.matmul(q.float() * scale, k.float().transpose(-1, -2))
     return torch.matmul(torch.softmax(logits, dim=-1), v.float()).to(q.dtype)
 
@@ -55,11 +61,11 @@ def flash_attention_blocked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, s
     (q . k) * scale, the running max m, alpha = exp(m_old - m_new),
     l = alpha*l + sum(p) over the unrounded f32 p and acc = alpha*acc + p.v,
     where for bf16 inputs p enters P.V as bf16(p) + bf16(p - bf16(p))
-    (`split_p=False`: one bf16 p); keys past T are masked to -1e30 and steps
-    wholly past T skipped; out = acc / max(l, 1e-30) in q's dtype. For f32
+    (`split_p=False`: one bf16 p); keys past Tk are masked to -1e30 and steps
+    wholly past Tk skipped; out = acc / max(l, 1e-30) in q's dtype. For f32
     inputs the card runs the CUDA-core kernel instead, whose steps are
     16-key chunks over a pre-scaled q: the same sums in another order."""
-    t = q.shape[-2]
+    t = k.shape[-2]
     step = chunk or block_k
     qf, kf, vf = q.float(), k.float(), v.float()
     bf16_p = q.dtype == torch.bfloat16
@@ -117,7 +123,7 @@ def _library():
 
     lib = ctypes.CDLL(str(build("flash_attention")))
     lib.flash_attention_launch.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 4
+        [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 5
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     lib.flash_attention_launch.restype = ctypes.c_int
     return lib
@@ -125,6 +131,7 @@ def _library():
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
     b, h, t, d = q.shape
+    tk = k.shape[-2]
     # written in the (B, T, H, D) layout the output projection reads, so
     # out.transpose(1, 2).reshape(B, T, H*D) is a view
     out = torch.empty(b, t, h, d, device=q.device, dtype=q.dtype).transpose(1, 2)
@@ -133,11 +140,13 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> 
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = _library().flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides, b, h, t, d,
-            float(scale), ROUTES[route], stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides, b, h, t, tk,
+            d, float(scale), ROUTES[route], stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed ({route}): CUDA error {rc}")
     obs.count("flash_attention.f32" if route == "cuda_core" else "flash_attention.tc")
+    if tk != t:
+        obs.count(CROSS_COUNTER)
     return out
 
 
@@ -148,7 +157,8 @@ def records_grad(*tensors: torch.Tensor) -> bool:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float) -> torch.Tensor:
-    """q, k, v: (B, H, T, D) -> (B, H, T, D); softmax over keys in f32.
+    """q (B, H, T, D), k and v (B, H, Tk, D) -> (B, H, T, D); softmax over
+    the Tk keys in f32 (Tk = T for self-attention).
 
     On a CUDA tensor this launches an sm_90a kernel (bf16: tensor cores,
     f32: CUDA cores) or raises; on a CPU tensor it runs the plain version. q, k and v may be strided views (head
@@ -159,9 +169,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     trainers build the DiT with use_flash=False, as the port's do): on a
     CUDA tensor that autograd would record it raises, since the ctypes
     launch would silently cut the gradient."""
-    if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
-        raise ValueError(f"q, k, v must be one (B, H, T, D) shape, got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if (q.dim() != 4 or k.shape != v.shape or k.dim() != 4 or q.shape[:2] != k.shape[:2]
+            or q.shape[-1] != k.shape[-1]):
+        raise ValueError(f"q must be one (B, H, T, D) shape and k, v one (B, H, Tk, D) shape, "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"flash attention takes float32 or bfloat16 q, k, v of one dtype, "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -175,9 +186,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError("the flash attention kernel has no backward: call it under "
                            "torch.no_grad() or inference_mode, or build the DiT with "
                            "use_flash=False for training")
-    if q.shape[-1] > MAX_D or q.shape[0] * q.shape[1] > 65535 or q.shape[-2] < 1:
+    if (q.shape[-1] > MAX_D or q.shape[0] * q.shape[1] > 65535 or q.shape[-2] < 1
+            or k.shape[-2] < 1):
         raise ValueError(f"the flash attention kernel takes D <= {MAX_D}, B*H <= 65535 "
-                         f"and T >= 1, got {tuple(q.shape)}")
+                         f"and T, Tk >= 1, got {tuple(q.shape)}, {tuple(k.shape)}")
     return _launch(q, k, v, scale)
 
 

@@ -2,7 +2,7 @@
 
     clap_ids (B,77), t5_ids (B,77)
       -> BERT+projection (B,77,1024) | T5 (B,77,1024)  -> (B,154,1024) context
-      -> S LCM steps of ConcatDiT2MLP
+      -> S LCM steps of the denoiser (ConcatDiT2MLP; any registry denoiser)
          (or, on the teacher path, 100 DDIM/PLMS steps with batch-doubled CFG)
       -> latent / scale_factor -> VAE decode -> mel (B,T,80)
       -> BigVGAN x256 upsample -> wav (B, 256*T)
@@ -14,10 +14,12 @@ CPU; the sampler state and schedule math stay f32.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional
 
 import torch
+from torch import nn
 
 from audiolcm_torch import obs
 from audiolcm_torch.aot import graph_key
@@ -28,7 +30,6 @@ from audiolcm_torch.diffusion.plms import plms_sample
 from audiolcm_torch.diffusion.schedule import NoiseSchedule
 from audiolcm_torch.models.bigvgan import BigVGAN
 from audiolcm_torch.models.clap_text import ClapTextEncoder, fuse_bert_state_dict
-from audiolcm_torch.models.dit import ConcatDiT2MLP
 from audiolcm_torch.models.t5_encoder import T5Encoder, fuse_t5_state_dict
 from audiolcm_torch.models.vae1d import AutoencoderKL1D
 from audiolcm_torch.nn.attention import fuse_qkv_state_dict
@@ -46,9 +47,11 @@ def resolve_device(device=None) -> torch.device:
 
 @dataclasses.dataclass
 class PipelineModules:
-    """Model definitions; weights arrive through PipelineParams."""
+    """Model definitions; weights arrive through PipelineParams. `dit` is any
+    denoiser of the registry (`config.REGISTRY`), served in the
+    ConcatDiT2MLP call signature (x, t, context, w_cond)."""
 
-    dit: ConcatDiT2MLP
+    dit: nn.Module
     vae: AutoencoderKL1D
     vocoder: BigVGAN
     clap_text: Optional[ClapTextEncoder] = None
@@ -85,7 +88,7 @@ def load_params(modules: PipelineModules, params: PipelineParams) -> None:
     load-time reparameterisations their knobs ask for (fused projections,
     folded weight norm)."""
     dit_sd = params.dit
-    if modules.dit.fuse_qkv:
+    if getattr(modules.dit, "fuse_qkv", False):
         dit_sd = fuse_qkv_state_dict(dit_sd)
     assign_state_dict(modules.dit, dit_sd)
     assign_state_dict(modules.vae, params.vae)
@@ -209,7 +212,9 @@ class AudioLCMPipeline:
 
         shape = (context.shape[0], latent_len, dit.in_channels)
         sampler = plms_sample if use_plms else ddim_sample
-        with obs.stage("dit", self.device):
+        # a denoiser that can keeps what it reads of the fixed caption over the steps
+        memo = getattr(dit, "caption_memo", contextlib.nullcontext)
+        with obs.stage("dit", self.device), memo():
             return sampler(denoise_fn, self.schedule, shape, context, uncond,
                            DDIMConfig(num_steps=num_steps, guidance_scale=guidance_scale),
                            x_T=x_T, noise=noise, generator=generator, device=self.device)

@@ -19,9 +19,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                 over the whole output, its edges and its last tile), flash
                 attention K3 (f32 on its CUDA-core kernel, bf16 on its
                 tensor-core kernel through the 16-byte or the element-wise
-                loads), the activation chain K4 (n_rep 1, 2, 6, MAX_NREP)
-  4. time     — each kernel, its plain version, the bound and (K3) the
-                library call, bf16 (K1 also its device time in the profiler
+                loads; also at the Flag teacher's self-attention and its
+                caption branch, 312 queries over 154 keys, each call of the
+                latter counted in `flash_attention.cross`), the activation
+                chain K4 (n_rep 1, 2, 6, MAX_NREP)
+  4. time     — each kernel, its plain version, the bound and (K3, also
+                at both Flag teacher shapes) the library call, bf16 (K1 also its device time in the profiler
                 and, for information, its 18 convs alone through cuDNN); the
                 alias-free activation at every stage width of a batch-8 10 s
                 and a batch-1 20 s generate (`act_forms`): the depthwise-conv
@@ -44,7 +47,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                 against the f32 einsum eps; then the teacher path: batch-8
                 10 s DDIM-100 generate with guidance 5 and flash attention
                 (DiT batch 16), its launch counts, ms, breakdown and
-                profile, and a PLMS-25 generate's launch counts
+                profile, and a PLMS-25 generate's launch counts; the same
+                DDIM-100 generate with the Flag DiT at Lumina-T2X's 2B
+                widths in its place (`flag_teacher`: K3 4800 launches, 2400
+                of them cross, ms, peak GB)
   7. prewarm  — api.prewarm_buckets: the serving generate captured as CUDA
                 graphs at batch 8 (mel 312, 624, 1248) and batch 1 (624):
                 capture seconds and pool bytes per bucket, the replay
@@ -135,6 +141,11 @@ F32_TOL = 1e-4  # f32 kernel vs plain: same math, sums in another order
 WAV_TOL = 1e-4  # batch-1 f32 pre-tanh waveform, fused stage vs unfused vocoder
 FLASH_TOL = 2e-5  # K3 f32 vs plain: the JAX bar (tests/test_pallas_attention.py:26)
 K5_F32_TOL = 1e-5  # K5 f32 vs plain: one activation, its sums in another order
+# K3 cases at the Flag teacher's shapes: (CFG batch 16, 32 heads, 312
+# latent tokens, head 72) self-attention, and the caption branch over the
+# 154 caption tokens (check_flash_phase's case form)
+FLAG_SELF = ((16, 32, 312, 72), False, "tc_vec")
+FLAG_CROSS = ((16, 32, 312, 72), False, "tc_vec", 154)
 DIT_TOL = 1e-4  # f32 DiT eps, flash vs einsum: attention sums in another order, 4 blocks
 # f32 VAE moments, card vs CPU, relative to max|moments|: ~20 convs and one
 # softmax attention summed in another order by cuDNN and the CPU kernels
@@ -580,34 +591,39 @@ def check_k2_phase(device, shapes, rehearsal: bool) -> list:
     return rows
 
 
-def flash_inputs(shape, device, qkv_views: bool, seed: int):
-    """q, k, v (B, H, T, D) f32: independent draws in the DiT's head-split
-    layout ((B, T, H, D) storage), or chunk views of one to_qkv output."""
+def flash_inputs(shape, device, qkv_views: bool, seed: int, tk=None):
+    """q (B, H, T, D), k and v (B, H, Tk, D) f32 (Tk = T unless given):
+    independent draws in the DiT's head-split layout ((B, T, H, D)
+    storage), or chunk views of one to_qkv output (self-attention only)."""
     b, h, t, d = shape
     g = torch.Generator(device).manual_seed(seed)
     if qkv_views:
         qkv = torch.randn(b, t, 3 * h * d, generator=g, device=device)
         return [a.reshape(b, t, h, d).transpose(1, 2) for a in qkv.chunk(3, dim=-1)]
-    return [torch.randn(b, t, h, d, generator=g, device=device).transpose(1, 2)
-            for _ in range(3)]
+    return [torch.randn(b, n, h, d, generator=g, device=device).transpose(1, 2)
+            for n in (t, tk or t, tk or t)]
 
 
 def check_flash_phase(device, cases) -> list:
     """K3 against its plain version: f32 (the CUDA-core kernel) max abs
     error <= FLASH_TOL; bf16 (the tensor-core kernel, on the route each case
     names) mean error against the f32 plain result at most 1.02x the plain
-    bf16 path's. On the card each f32 call adds one to `flash_attention.f32`,
-    each bf16 call one to `flash_attention.tc`."""
+    bf16 path's. A case is (shape, qkv chunk views, bf16 route) for
+    self-attention, with a fourth entry Tk for cross-attention. On the card
+    each f32 call adds one to `flash_attention.f32`, each bf16 call one to
+    `flash_attention.tc`, and each call of a cross case one more to
+    `flash_attention.cross`."""
     from audiolcm_torch import obs
     from audiolcm_torch.nn import flash_attention as FA
 
     on_card = device.type == "cuda"
-    counts = lambda: (obs.counters().get("flash_attention.f32", 0),
-                      obs.counters().get("flash_attention.tc", 0))
-    step = lambda a, b: [b[0] - a[0], b[1] - a[1]]
+    counts = lambda: [obs.counters().get(k, 0) for k in ("flash_attention.f32",
+                                                         "flash_attention.tc", FA.CROSS_COUNTER)]
+    step = lambda a, b: [y - x for x, y in zip(a, b)]
     rows = []
-    for i, (shape, views, route) in enumerate(cases):
-        q, k, v = flash_inputs(shape, device, views, seed=100 + i)
+    for i, (shape, views, route, *cross) in enumerate(cases):
+        tk = cross[0] if cross else shape[2]
+        q, k, v = flash_inputs(shape, device, views, seed=100 + i, tk=tk)
         scale = shape[-1] ** -0.5
         plain = FA.flash_attention_plain(q, k, v, scale)
         n0 = counts()
@@ -620,14 +636,15 @@ def check_flash_phase(device, cases) -> list:
         kerr = (kb16 - plain).abs().mean().item()
         perr = (pb16 - plain).abs().mean().item()
         sync(device)
-        row = {"kernel": "flash_attention", "shape": list(shape), "qkv_chunk_views": views,
-               "f32_route": FA.pick_route(q, k, v), "bf16_route": FA.pick_route(qb, kb, vb),
+        row = {"kernel": "flash_attention", "shape": list(shape), "tk": tk,
+               "qkv_chunk_views": views, "f32_route": FA.pick_route(q, k, v), "bf16_route": FA.pick_route(qb, kb, vb),
                "f32_max_abs_err": err, "f32_tol": FLASH_TOL, "bf16_mean_err": kerr,
                "plain_bf16_mean_err": perr,
                "bf16_max_abs_err_vs_plain_bf16": (kb16 - pb16).abs().max().item(),
                "launches_f32_call": step(n0, n1), "launches_bf16_call": step(n1, n2)}
         emit({"phase": "check", **row})
-        want = ([1, 0], [0, 1]) if on_card else ([0, 0], [0, 0])
+        c = int(tk != shape[2])
+        want = ([1, 0, c], [0, 1, c]) if on_card else ([0, 0, 0], [0, 0, 0])
         if not (err <= FLASH_TOL and kerr <= perr * 1.02 and row["bf16_route"] == route
                 and (row["launches_f32_call"], row["launches_bf16_call"]) == want):
             raise AssertionError(f"flash_attention disagrees with its plain version: {row}")
@@ -652,33 +669,37 @@ def time_k2_phase(device, shapes, card: dict) -> dict:
     return out
 
 
-def flash_bound_ms(b: int, h: int, t: int, d: int, elem_bytes: int) -> tuple:
-    """Least time for one attention: q, k, v read once and the output written
-    once over the HBM rate, vs 4*B*H*T^2*D FLOP (two T x T x D products)
-    over the bf16 peak."""
-    t_bytes = 4 * b * h * t * d * elem_bytes / HBM
-    t_ops = 4 * b * h * t * t * d / PEAK_BF16
+def flash_bound_ms(b: int, h: int, t: int, d: int, elem_bytes: int, tk=None) -> tuple:
+    """Least time for one attention of T queries over Tk keys (Tk = T unless
+    given): q, k, v read once and the output written once over the HBM
+    rate, B*H*D*(2T + 2Tk) elements, vs 4*B*H*T*Tk*D FLOP (two T x Tk x D
+    products) over the bf16 peak."""
+    tk = tk or t
+    t_bytes = b * h * d * (2 * t + 2 * tk) * elem_bytes / HBM
+    t_ops = 4 * b * h * t * tk * d / PEAK_BF16
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations"
 
 
-def time_flash_phase(device, shape, card: dict) -> dict:
-    """K3 at the teacher's DiT shape in bf16 (CUDA events, inputs in the
-    DiT's head-split layout): the kernel, its plain version, the library's
-    scaled_dot_product_attention (a yardstick only: the port never calls
-    it) and the bound."""
+def time_flash_phase(device, shape, card: dict, tk=None) -> dict:
+    """K3 at one DiT shape in bf16 (CUDA events, inputs in the DiT's
+    head-split layout; Tk keys for cross-attention): the kernel, its plain
+    version, the library's scaled_dot_product_attention (a yardstick only:
+    the port never calls it) and the bound."""
     import torch.nn.functional as F
 
     from audiolcm_torch.nn import flash_attention as FA
 
-    q, k, v = (a.bfloat16() for a in flash_inputs(shape, device, False, seed=7))
+    q, k, v = (a.bfloat16() for a in flash_inputs(shape, device, False, seed=7, tk=tk))
     scale = shape[-1] ** -0.5
-    row = {"shape": list(shape), "dtype": "bfloat16", "route": FA.pick_route(q, k, v),
+    row = {"shape": list(shape), "tk": tk or shape[2], "dtype": "bfloat16",
+           "route": FA.pick_route(q, k, v),
            "ms": event_ms(lambda: FA.flash_attention(q, k, v, scale), iters=50, warmup=3),
            "plain_ms": event_ms(lambda: FA.flash_attention_plain(q, k, v, scale), iters=20,
                                 warmup=2),
            "library_ms": event_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
                                   iters=50, warmup=3)}
-    row["bound_ms"], row["bound_by"] = flash_bound_ms(*shape, 2)
+    row["bound_ms"], row["bound_by"] = flash_bound_ms(*shape, 2, tk=tk)
+    row["bound_share"] = row["bound_ms"] / row["ms"]
     row["card"] = card["nvidia_smi"]
     emit({"phase": "time", "kernel": "flash_attention", **row})
     return row
@@ -824,7 +845,7 @@ def build_modules(device, full: bool, fast_snake: bool = True):
 
 # the recorder's launch counters (audiolcm_torch.obs), by kernel and route
 COUNTERS = ("amp_stage.mma", "amp_stage.f32", "flash_attention.tc", "flash_attention.f32",
-            "act_chain", "alias_free_act")
+            "flash_attention.cross", "act_chain", "alias_free_act")
 _counts_base: dict = {}
 _k5_due = 0  # K5 launches owed by the eager vocoder forwards since reset_counts()
 
@@ -1428,6 +1449,64 @@ def teacher_phase(device, mods, full: bool, card: dict) -> dict:
         raise AssertionError(f"PLMS-25 check failed: {plms}, flash launches expected {n_plms}")
     set_flash(mods.dit, False)
     emit({"phase": "teacher", **row})
+    return row
+
+
+def flag_teacher_phase(device, mods, full: bool, card: dict) -> dict:
+    """The teacher path with the Flag DiT in place of ConcatDiT2MLP
+    (TxtFlagLargeDiT at Lumina-T2X's 2B widths: hidden 2304, 24 blocks, 32
+    heads of 72, SwiGLU 6144, qk-norm, its serving route), the other
+    modules shared: batch 8, 10 s, bf16, DDIM 100 steps, guidance 5. Two K3
+    launches per block and step on the tensor-core kernel, the
+    self-attention and the caption branch (312 queries over 154 keys), the
+    latter counted again in `flash_attention.cross`: 4800 and 2400."""
+    from audiolcm_torch.models.flag_dit import TxtFlagLargeDiT
+    from audiolcm_torch.pipeline import AudioLCMPipeline
+
+    batch, latent, tok = (8, 312, 77) if full else (2, 16, 77)
+    kw = (dict(hidden_size=2304, depth=24, num_heads=32, qk_norm=True) if full
+          else dict(context_dim=32, hidden_size=32, depth=1, num_heads=4, qk_norm=True))
+    with torch.device(device):
+        flag = TxtFlagLargeDiT(**kw, use_flash=True)
+    init_random_(flag, torch.Generator(device).manual_seed(5))
+    ids, uc_ids = token_ids(mods, batch, tok, seed=0), token_ids(mods, 1, tok, seed=10)
+    pipe = AudioLCMPipeline(dataclasses.replace(mods, dit=flag), compute_dtype=torch.bfloat16,
+                            device=device)
+    gen = torch.Generator(device).manual_seed(4)
+    run = lambda: teacher_generate(pipe, ids, uc_ids, latent, gen)
+    run()  # warm-up
+    sync(device)
+    reset_counts()
+    wav, mel = run()
+    sync(device)
+    launches = read_counts()
+    on_card = device.type == "cuda"
+    n_steps = 100
+    expect = (batch, latent * 2 * 256)
+    row = {"dit": "TxtFlagLargeDiT", **kw, "params": sum(p.numel() for p in flag.parameters()),
+           "batch": batch, "dit_batch": 2 * batch, "sampler": "ddim", "steps": n_steps,
+           "guidance": GUIDANCE, "wav_shape": list(wav.shape), "mel_shape": list(mel.shape),
+           "finite": bool(torch.isfinite(wav).all()), "wav_abs_max": wav.abs().max().item(),
+           "wav_std": wav.std().item(), "launches": launches}
+    n_flash = 2 * len(flag.blocks) * n_steps if on_card else 0
+    want = counts_with(amp_stage_mma=2 if on_card else 0, flash_attention_tc=n_flash,
+                       flash_attention_cross=n_flash // 2,
+                       alias_free_act=k5_launches(mods.vocoder, torch.bfloat16, on_card))
+    if not (tuple(wav.shape) == expect and row["finite"] and row["wav_abs_max"] <= 1.0
+            and launches == want):
+        emit({"phase": "flag_teacher", **row})
+        raise AssertionError(f"Flag teacher path check failed: {row}, launches expected {want}")
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        row.update(ms_one_generate=ms, x_realtime=batch * expect[1] / 16000 / (ms / 1e3),
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, card=card["nvidia_smi"])
+    else:
+        row.update(ms_one_generate="not measured", x_realtime="not measured")
+    emit({"phase": "flag_teacher", **row})
     return row
 
 
@@ -3895,23 +3974,29 @@ def main(argv=None) -> int:
     k2_checks = check_k2_phase(device, shapes[:2], rehearsal)
     # the teacher's DiT attention (CFG batch 16, T = 467), the longest DiT
     # sequence (max_len 1000), a short head, the chunk views of to_qkv, a
-    # head (D = 33) that only the element-wise loads take, and the widest
-    # heads the kernel takes (D = 64, 128)
+    # head (D = 33) that only the element-wise loads take, the widest
+    # heads the kernel takes (D = 64, 128); the Flag teacher's
+    # self-attention (CFG batch 16, 32 heads, T = 312) and its caption
+    # branch (312 queries over 154 keys)
     flash_cases = ([((16, 8, 467, 72), False, "tc_vec"), ((2, 8, 1000, 72), False, "tc_vec"),
                     ((1, 2, 100, 8), False, "tc_vec"), ((16, 8, 467, 72), True, "tc_vec"),
                     ((2, 3, 5, 33), False, "tc_elementwise"), ((2, 4, 300, 64), False, "tc_vec"),
-                    ((2, 2, 200, 128), False, "tc_vec")]
+                    ((2, 2, 200, 128), False, "tc_vec"), FLAG_SELF, FLAG_CROSS]
                    if not rehearsal else [((2, 2, 37, 8), False, "tc_vec"),
                                           ((2, 2, 37, 8), True, "tc_vec"),
-                                          ((2, 3, 5, 33), False, "tc_elementwise")])
+                                          ((2, 3, 5, 33), False, "tc_elementwise"),
+                                          ((2, 2, 37, 8), False, "tc_vec", 19)])
     flash_checks = check_flash_phase(device, flash_cases)
     act_checks = check_act_phase(device, shapes, rehearsal)
     mark("check")
     times, k2_times, flash_time, act_times, act_forms = {}, {}, {}, [], []
+    flag_flash_times = []
     if not rehearsal:
         times = time_phase(device, shapes[:2], card)
         k2_times = time_k2_phase(device, shapes[:2], card)
         flash_time = time_flash_phase(device, (16, 8, 467, 72), card)
+        flag_flash_times = [time_flash_phase(device, FLAG_SELF[0], card),
+                            time_flash_phase(device, FLAG_CROSS[0], card, tk=FLAG_CROSS[3])]
         act_times = time_act_phase(device, shapes[:2], card)
         act_forms = act_forms_phase(device, card)
     mark("time")
@@ -3924,6 +4009,7 @@ def main(argv=None) -> int:
     mark("native_ckpt")
     teacher_check_phase(device, full=not rehearsal)
     teacher_row = teacher_phase(device, mods, full=not rehearsal, card=card)
+    flag_row = flag_teacher_phase(device, mods, full=not rehearsal, card=card)
     mark("teacher")
     prewarm_row = prewarm_phase(device, mods, full=not rehearsal, card=card)
     fold_phase(device, mods, full=not rehearsal, card=card)
@@ -3970,9 +4056,12 @@ def main(argv=None) -> int:
           "by_phase": {n: t - marks[i][1] for i, (n, t) in enumerate(marks[1:])}})
     line = kernels_line(checks, k2_checks, flash_checks, times, k2_times, flash_time, gen_row,
                         teacher_row, act_checks, act_times, interior, build_row, act_forms)
+    k3 = next(k for k in line["kernels"] if k["name"] == "flash_attention")
+    k3.update(launches_flag_teacher=flag_row["launches"]["flash_attention.tc"],
+              launches_flag_teacher_cross=flag_row["launches"]["flash_attention.cross"],
+              flag_per_shape=flag_flash_times or "not measured")
     line["kernels"][0]["launches_per_captured_replay"] = prewarm_row.get(
         "k1_launches_per_replay", "not measured")
-    k3 = next(k for k in line["kernels"] if k["name"] == "flash_attention")
     for k, keys in ((line["kernels"][0], ("amp_stage.f32", "amp_stage.mma")),
                     (k3, ("flash_attention.f32", "flash_attention.tc"))):
         k["launches_error_budget"] = {name: {c: r["launches"][c] for c in keys}

@@ -1,4 +1,4 @@
-"""Flash self-attention (K3): the plain version and the tensor-core kernel's
+"""Flash attention (K3): the plain version and the tensor-core kernel's
 blockwise algorithm against audiolcm_tpu.nn.pallas_attention.flash_attention,
 the wrapper's route choice, and the CUDA kernels against the plain version
 on the card (`gpu` marker).
@@ -158,6 +158,44 @@ def test_wrapper_dispatch_views_and_validation():
         F.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"), 0.1)
 
 
+@pytest.mark.parametrize("split_p", [True, False], ids=["split-p", "single-p"])
+@pytest.mark.parametrize("tq,tk", [(312, 154), (70, 130)], ids=["flag-cross", "ragged"])
+def test_blocked_matches_plain_with_its_own_key_length(tq, tk, split_p):
+    """Keys of another length than the queries (the Flag DiT's caption
+    branch: 312 latent queries against 154 caption keys, and a ragged 70
+    against 130, whose last 64-key tile holds 2 keys): the kernel's
+    algorithm equals the plain version in f32 at atol 2e-5, and in bf16
+    with P split meets the 1.02x bar (one bf16 P stays within 1.25x)."""
+    shape = (2, 3, tq, 72)
+    q = torch.from_numpy(_qkv(tq, shape)[0])
+    k, v = (torch.from_numpy(a) for a in _qkv(tk, (2, 3, tk, 72))[:2])
+    scale = 72 ** -0.5
+    ref = F.flash_attention_plain(q, k, v, scale)
+    assert ref.shape == shape
+    out = F.flash_attention_blocked(q, k, v, scale, split_p=split_p)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=ATOL)
+    qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    err = lambda y: (y.float() - ref).abs().mean().item()
+    blocked = F.flash_attention_blocked(qb, kb, vb, scale, split_p=split_p)
+    assert blocked.dtype == torch.bfloat16 and blocked.shape == shape
+    assert err(blocked) <= (1.02 if split_p else 1.25) * err(
+        F.flash_attention_plain(qb, kb, vb, scale))
+
+
+def test_wrapper_takes_its_own_key_length():
+    """On the CPU a call with Tk != T runs the plain version and counts no
+    launch; k and v must agree with each other and with q's B, H and D."""
+    q = torch.from_numpy(_qkv(8, (2, 3, 11, 8))[0])
+    k, v = (torch.from_numpy(a) for a in _qkv(9, (2, 3, 5, 8))[:2])
+    before = obs.counters()
+    out = F.flash_attention(q, k, v, 0.3)
+    assert obs.counters() == before
+    np.testing.assert_allclose(out.numpy(), F.flash_attention_plain(q, k, v, 0.3).numpy())
+    for bad in ((k, v[:, :, :-1]), (k[:, :2], v[:, :2]), (k[..., :4], v[..., :4])):
+        with pytest.raises(ValueError, match="\\(B, H, Tk, D\\)"):
+            F.flash_attention(q, *bad, 0.3)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -216,3 +254,50 @@ def test_kernel_qkv_views_on_card(cuda_device):
     pb = F.flash_attention_plain(qb, kb, vb, d ** -0.5).float()
     assert (out.float() - plain).abs().mean() <= (pb - plain).abs().mean() * 1.02
 
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,tk", [((16, 32, 312, 72), 154), ((2, 3, 70, 72), 130),
+                                      ((2, 3, 40, 33), 100)],
+                         ids=["flag-cross", "ragged", "elementwise"])
+def test_kernel_matches_plain_with_its_own_key_length_on_card(cuda_device, shape, tk):
+    """Cross-attention on the card, at the Flag DiT's caption branch
+    (16, 32, 312 -> 154, 72), a ragged 70 -> 130 and D = 33 on the
+    element-wise loads, at the bars of the self-attention test: f32 on the
+    CUDA-core kernel at atol 2e-5, bf16 on the tensor-core kernel no worse
+    than the plain bf16 path x1.02."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q = torch.from_numpy(_qkv(10, shape)[0]).to(cuda_device)
+    k, v = (torch.from_numpy(a).to(cuda_device)
+            for a in _qkv(11, shape[:2] + (tk, shape[-1]))[:2])
+    scale = shape[-1] ** -0.5
+    plain = F.flash_attention_plain(q, k, v, scale)
+    out = F.flash_attention(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert (out - plain).abs().max().item() <= ATOL
+    qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    kern = F.flash_attention(qb, kb, vb, scale).float()
+    torch.cuda.synchronize()
+    pb = F.flash_attention_plain(qb, kb, vb, scale).float()
+    assert (kern - plain).abs().mean() <= (pb - plain).abs().mean() * 1.02
+
+
+@pytest.mark.gpu
+def test_cross_counter_counts_cross_launches_only_on_card(cuda_device):
+    """`flash_attention.cross` counts one per launch whose keys number other
+    than its queries and none per self-attention launch, while
+    `flash_attention.tc` counts both."""
+    b, h, t, d = 16, 32, 312, 72
+    q, k, v = (torch.randn(b, h, t, d, device=cuda_device, dtype=torch.bfloat16)
+               for _ in range(3))
+    yk, yv = (torch.randn(b, h, 154, d, device=cuda_device, dtype=torch.bfloat16)
+              for _ in range(2))
+    read = lambda: (obs.counters().get(F.CROSS_COUNTER, 0),
+                    obs.counters().get("flash_attention.tc", 0))
+    cross, tc = read()
+    F.flash_attention(q, k, v, d ** -0.5)
+    assert read() == (cross, tc + 1)
+    F.flash_attention(q, yk, yv, d ** -0.5)
+    F.flash_attention(q, yk, yv, d ** -0.5)
+    torch.cuda.synchronize()
+    assert read() == (cross + 2, tc + 3)
