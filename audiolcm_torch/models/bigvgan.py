@@ -28,18 +28,28 @@ inside. Stage dispatch follows the JAX package:
   * `int8_min_channels` > 0 runs the resblock convs of the unfused
     resblock-"1" stages with C >= it that do not use the polyphase form
     (the JAX package's channels-last stages) as dynamic-int8 products
-    (nn/int8_conv.py), a parity knob.
+    (nn/int8_conv.py), a parity knob;
+  * otherwise every resblock conv of an unfused resblock-"1" stage is one
+    launch of the sm_90a kernel K6 (nn/wide_conv.py) when the stage's input
+    is bf16 on the card, no gradient is recorded, T meets TMA's alignment
+    (`wide_conv.takes`) and the convs' reach fits its window
+    (`wide_conv.reaches`): `convs2[i]` adds the residual in its
+    epilogue, a resblock's last conv also the stage's running resblock sum,
+    and the stage's last conv scales by 1 / len(resblocks). Its weights are
+    packed once per weight version (`AMPBlock1.wide_weights`); the pipeline
+    packs them when it is built (`BigVGAN.pack_wide_conv`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
 
 from audiolcm_torch import obs
+from audiolcm_torch.nn import wide_conv
 from audiolcm_torch.nn.alias_free_act import alias_free_act
 from audiolcm_torch.nn.amp_stage import fused_amp_stage, route_takes, stage_radius
 from audiolcm_torch.nn.fold import fold_legal, fold_time, stage_fold_halo, unfold_time
@@ -125,6 +135,7 @@ class AMPBlock1(nn.Module):
         self.activations = nn.ModuleList([
             Activation1d(channels, activation, snake_logscale, fast_snake)
             for _ in range(2 * len(dilations))])
+        self._wide: Optional[tuple] = None  # (key, packed weights) for K6
 
     def forward(self, x: torch.Tensor, polyphase: bool = True,
                 int8: bool = False) -> torch.Tensor:
@@ -132,6 +143,32 @@ class AMPBlock1(nn.Module):
             h = _conv(self.convs1[i], self.activations[2 * i](x, polyphase), int8)
             h = _conv(self.convs2[i], self.activations[2 * i + 1](h, polyphase), int8)
             x = x + h
+        return x
+
+    def wide_weights(self) -> list:
+        """convs1 then convs2 weights packed for K6 (`wide_conv.pack_weight`),
+        packed again only when a weight's storage, dtype or version changes
+        (a module made inside `torch.inference_mode()` holds inference
+        tensors, which keep no version: their packing follows the storage)."""
+        convs = [*self.convs1, *self.convs2]
+        key = tuple((w.data_ptr(), w.dtype, None if w.is_inference() else w._version)
+                    for w in (c.weight for c in convs))
+        if self._wide is None or self._wide[0] != key:
+            self._wide = (key, [wide_conv.pack_weight(c.weight) for c in convs])
+        return self._wide[1]
+
+    def forward_wide(self, x: torch.Tensor, acc: Optional[torch.Tensor],
+                     scale: float) -> torch.Tensor:
+        """The block through K6: returns (acc + block(x)) * scale, the
+        stage's running resblock sum (acc None: the block's output alone)."""
+        ws, nd = self.wide_weights(), len(self.dilations)
+        for i, d in enumerate(self.dilations):
+            h = wide_conv.wide_conv(self.activations[2 * i](x, True), ws[i],
+                                    self.convs1[i].bias, d)
+            last = i == nd - 1
+            x = wide_conv.wide_conv(self.activations[2 * i + 1](h, True), ws[nd + i],
+                                    self.convs2[i].bias, 1, res=x,
+                                    acc=acc if last else None, scale=scale if last else 1.0)
         return x
 
     def stage_params(self, dtype) -> dict:
@@ -208,6 +245,18 @@ class BigVGAN(nn.Module):
                 and all(tuple(rd) == dil for rd in cfg.resblock_dilation_sizes)
                 and route_takes(dtype, ch, stage_radius(cfg.resblock_kernel_sizes, dil)))
 
+    def pack_wide_conv(self) -> None:
+        """Packs K6's weights of every resblock-"1" stage that runs unfused
+        in the module's dtype, so that no packing waits for a first forward
+        (or falls inside a graph capture)."""
+        cfg, nk = self.config, len(self.config.resblock_kernel_sizes)
+        dtype = next(self.parameters()).dtype
+        for i in range(len(cfg.upsample_rates)):
+            if cfg.resblock == "1" and not self._fused(cfg.upsample_initial_channel >> (i + 1),
+                                                      dtype):
+                for blk in self.resblocks[i * nk:(i + 1) * nk]:
+                    blk.wide_weights()
+
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
         """mel (B, T, num_mels) -> waveform (B, 256*T) in [-1, 1]."""
         cfg = self.config
@@ -239,10 +288,17 @@ class BigVGAN(nn.Module):
                 polyphase = cfg.resblock == "1" and ch <= self.cf_max_channels
                 int8 = cfg.resblock == "1" and not polyphase and 0 < self.int8_min_channels <= ch
                 acc = None
-                for blk in blocks:
-                    h = blk(x, polyphase, int8) if int8 else blk(x, polyphase)
-                    acc = h if acc is None else acc + h
-                x = acc / nk
+                if (cfg.resblock == "1" and not int8 and wide_conv.takes(x)
+                        and wide_conv.reaches(cfg.resblock_kernel_sizes,
+                                              cfg.resblock_dilation_sizes)):
+                    for n, blk in enumerate(blocks):
+                        acc = blk.forward_wide(x, acc, 1.0 / nk if n == nk - 1 else 1.0)
+                    x = acc
+                else:
+                    for blk in blocks:
+                        h = blk(x, polyphase, int8) if int8 else blk(x, polyphase)
+                        acc = h if acc is None else acc + h
+                    x = acc / nk
                 if folded:
                     x = unfold_time(x, fold, halo * u, seg_len * u)
         polyphase = cfg.resblock == "1" and x.shape[1] <= self.cf_max_channels

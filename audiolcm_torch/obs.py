@@ -35,7 +35,7 @@ that counts what it drops. The names:
 
 Counters (`count`), keyed by kernel and route: `amp_stage.mma`,
 `amp_stage.f32`, `flash_attention.tc`, `flash_attention.f32`, `act_chain`,
-`alias_free_act`; and `flash_attention.cross`, which counts again each K3
+`alias_free_act`, `wide_conv`; and `flash_attention.cross`, which counts again each K3
 launch whose keys number other than its queries (the Flag DiT's caption
 branch). A launch made while a graph captures (`capture()`) goes
 to the graph's `Tally`, which `launch()` adds to the totals once per

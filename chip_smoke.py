@@ -29,13 +29,17 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                 alias-free activation at every stage width of a batch-8 10 s
                 and a batch-1 20 s generate (`act_forms`): the depthwise-conv
                 and polyphase forms, and K5 beside its bounds, with its f32
-                and bf16 errors against its plain version
+                and bf16 errors against its plain version; K6 at the same
+                stages (`wide_conv_forms`): a stage's 18 resblock convs with
+                their sums against cuDNN's, its bound, its bf16 error
+                against cuDNN's bf16 route
   5. generate — the LCM serving pipeline at full width (random weights from
                 a seed): batch 1 f32 with the fused stage against the
                 unfused vocoder (before the final tanh); then the batch-8
                 10 s generate with the launch counts of its path (K1 2, K5
-                73; every later phase holds K5 to one launch per activation
-                of each no-grad vocoder forward on the card), ms per
+                73, K6 72; every later phase holds K5 to one launch per
+                activation, and K6 to one per resblock conv of the unfused
+                stages, of each no-grad bf16 vocoder forward on the card), ms per
                 generate, x realtime and a per-layer breakdown; the same
                 generate with use_flash=True (launch counts, ms); then the
                 serving vocoder at knob 96 against knob 48 (`knob`); the
@@ -268,7 +272,8 @@ def build_phase() -> dict:
     """Build every source; ptxas' per-kernel lines; the HMMA (tensor-core
     mma) count in the SASS of each flash-attention and AMP-stage kernel:
     > 0 for every bf16 tensor-core instantiation (K3's tc_kernel, K1's
-    mma_kernel), 0 for K1's f32 CUDA-core one."""
+    mma_kernel), 0 for K1's f32 CUDA-core one; the HGMMA (warpgroup mma)
+    count of each K6 tile: > 0."""
     from audiolcm_torch.build import build_all, sass_op_counts
 
     t0 = time.time()
@@ -284,12 +289,15 @@ def build_phase() -> dict:
     row = {"seconds": seconds, "ptxas": stats, "flash_attention_sass_hmma": hmma,
            "amp_stage_sass_hmma": amp, "act_chain_ptxas": ptxas_kernels(logs["act_chain"]),
            "act_chain_dynamic_smem_bytes": K.smem_bytes(K.pick_tile(2), 2)}
+    row["wide_conv_sass_hgmma"] = hgmma = sass_op_counts("wide_conv", "HGMMA")
     tc = [n for fn, n in hmma.items() if "tc_kernel" in fn]
     mma = [n for fn, n in amp.items() if "mma_kernel" in fn]
     cuda_core = [n for fn, n in amp.items() if "mma_kernel" not in fn]
-    if not tc or min(tc) == 0 or not mma or min(mma) == 0 or not cuda_core or any(cuda_core):
+    if (not tc or min(tc) == 0 or not mma or min(mma) == 0 or not cuda_core or any(cuda_core)
+            or len(hgmma) != 4 or min(hgmma.values()) == 0):
         emit({"phase": "build", **row})
-        raise AssertionError(f"HMMA in SASS: flash_attention {hmma}, amp_stage {amp}")
+        raise AssertionError(f"HMMA in SASS: flash_attention {hmma}, amp_stage {amp}; "
+                             f"HGMMA in wide_conv {hgmma}")
     return row
 
 
@@ -549,6 +557,91 @@ def act_forms_phase(device, card: dict) -> list:
                 raise AssertionError(f"alias_free_act disagrees with its plain version: {row}")
             rows.append(row)
             del x, want, kb
+    return rows
+
+
+def wide_conv_forms_phase(device, card: dict) -> list:
+    """K6 (nn/wide_conv.py) at every unfused stage of a batch-8 10 s and a
+    batch-1 20 s generate (C = 768..96), bf16: the stage's 18 resblock convs
+    as the stage launches them (convs1 plain; convs2 with the residual; each
+    resblock's last also with the running sum, the stage's last scaled by
+    1/3), timed by CUDA events and by K6's device time, against the same 18
+    convs through cuDNN (F.conv1d on channels-first bf16) with the bf16 sums
+    K6 replaces; the bound 252 C^2 B T FLOP at the bf16 peak. Errors against
+    an f32 reference from the same bf16 inputs (TF32 off), on the stage's
+    last conv (the most sums) and on a plain one: K6's mean error at most
+    1.02x the cuDNN route's, as tests/test_torch_wide_conv.py holds it; one
+    launch per call."""
+    import torch.nn.functional as F
+
+    from audiolcm_torch import obs
+    from audiolcm_torch.models.bigvgan import BigVGANConfig
+    from audiolcm_torch.nn import wide_conv as W
+
+    cfg, rows = BigVGANConfig(), []
+    ks, ds, nk = cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes[0], 3
+    for batch, mel in ((8, 624), (1, 1248)):
+        t = mel
+        for i, u in enumerate(cfg.upsample_rates[:4]):
+            c, t = cfg.upsample_initial_channel // 2 ** (i + 1), t * u
+            g = torch.Generator(device).manual_seed(c + batch)
+            a, x, acc = (torch.randn(batch, c, t, generator=g, device=device).bfloat16()
+                         for _ in range(3))
+            ws = {k: (torch.randn(c, c, k, generator=g, device=device) * (c * k) ** -0.5)
+                  .bfloat16() for k in ks}
+            wp = {k: W.pack_weight(w) for k, w in ws.items()}
+            bias = (0.1 * torch.randn(c, generator=g, device=device)).bfloat16()
+
+            def k6():
+                for n, k in enumerate(ks):
+                    for j, d in enumerate(ds):
+                        last = j == len(ds) - 1
+                        W.wide_conv(a, wp[k], bias, d)
+                        W.wide_conv(a, wp[k], bias, 1, res=x, acc=acc if last and n else None,
+                                    scale=1 / nk if last and n == nk - 1 else 1.0)
+
+            def cudnn():
+                for n, k in enumerate(ks):
+                    for j, d in enumerate(ds):
+                        last = j == len(ds) - 1
+                        F.conv1d(a, ws[k], bias, padding=(k - 1) // 2 * d, dilation=d)
+                        h = x + F.conv1d(a, ws[k], bias, padding=(k - 1) // 2)
+                        if last and n:
+                            h = acc + h
+                        if last and n == nk - 1:
+                            h = h / nk
+
+            with torch.inference_mode():
+                row = {"C": c, "T": t, "batch": batch, "tile": W.pick_tile(c, batch, t),
+                       "convs": 18, "k6_ms": event_ms(k6, iters=10, warmup=2),
+                       "k6_device_ms": kernel_device_ms(k6, "wide_conv_kernel", 5),
+                       "cudnn_ms": event_ms(cudnn, iters=5, warmup=2)}
+                errs = {}
+                for name, d, kw in (("plain", 5, {}),
+                                    ("last", 1, {"res": x, "acc": acc, "scale": 1 / nk})):
+                    k = 11
+                    pad = (k - 1) // 2 * d
+                    ref = F.conv1d(a.float(), ws[k].float(), bias.float(), padding=pad,
+                                   dilation=d)
+                    lib = F.conv1d(a, ws[k], bias, padding=pad, dilation=d)
+                    if kw:
+                        ref = (acc.float() + x.float() + ref) / nk
+                        lib = (acc + (x + lib)) / nk
+                    n0 = obs.counters().get("wide_conv", 0)
+                    got = W.wide_conv(a, wp[k], bias, d, **kw)
+                    sync(device)
+                    errs[name] = {"launches": obs.counters().get("wide_conv", 0) - n0,
+                                  "k6_mean_err": (got.float() - ref).abs().mean().item(),
+                                  "cudnn_mean_err": (lib.float() - ref).abs().mean().item()}
+            row["errors"] = errs
+            row["bound_ms"] = 252 * c * c * batch * t / PEAK_BF16 * 1e3
+            row.update(bound_share=row["bound_ms"] / row["k6_device_ms"], card=card["nvidia_smi"])
+            emit({"phase": "wide_conv_forms", **row})
+            if not all(e["launches"] == 1 and e["k6_mean_err"] <= 1.02 * e["cudnn_mean_err"]
+                       for e in errs.values()):
+                raise AssertionError(f"wide_conv: error above the cuDNN route's: {row}")
+            rows.append(row)
+            del a, x, acc, ws, wp
     return rows
 
 
@@ -845,24 +938,27 @@ def build_modules(device, full: bool, fast_snake: bool = True):
 
 # the recorder's launch counters (audiolcm_torch.obs), by kernel and route
 COUNTERS = ("amp_stage.mma", "amp_stage.f32", "flash_attention.tc", "flash_attention.f32",
-            "flash_attention.cross", "act_chain", "alias_free_act")
+            "flash_attention.cross", "act_chain", "alias_free_act", "wide_conv")
 _counts_base: dict = {}
 _k5_due = 0  # K5 launches owed by the eager vocoder forwards since reset_counts()
+_k6_due = 0  # K6 launches owed by them
 
 
 def track_k5_due() -> None:
-    """Makes every BigVGAN forward add the K5 launches it owes (k5_launches:
-    one per activation outside a fused stage, on the card without autograd)
-    to `_k5_due`. A replayed graph runs no forward, so this counts eager
-    forwards only."""
+    """Makes every BigVGAN forward add the K5 and K6 launches it owes
+    (k5_launches: one per activation outside a fused stage, on the card
+    without autograd; k6_launches: one per resblock conv of those stages in
+    bf16) to `_k5_due` and `_k6_due`. A replayed graph runs no forward, so
+    this counts eager forwards only."""
     from audiolcm_torch.models.bigvgan import BigVGAN
 
     forward = BigVGAN.forward
 
     def owing(self, mel):
-        global _k5_due
-        _k5_due += k5_launches(self, next(self.parameters()).dtype,
-                               mel.is_cuda and not torch.is_grad_enabled())
+        global _k5_due, _k6_due
+        dtype, on_card = next(self.parameters()).dtype, mel.is_cuda and not torch.is_grad_enabled()
+        _k5_due += k5_launches(self, dtype, on_card)
+        _k6_due += k6_launches(self, dtype, on_card)
         return forward(self, mel)
 
     BigVGAN.forward = owing
@@ -872,8 +968,8 @@ def reset_counts() -> None:
     """Marks the launch totals that read_counts() counts from."""
     from audiolcm_torch import obs
 
-    global _counts_base, _k5_due
-    _counts_base, _k5_due = obs.counters(), 0
+    global _counts_base, _k5_due, _k6_due
+    _counts_base, _k5_due, _k6_due = obs.counters(), 0, 0
 
 
 def read_counts() -> dict:
@@ -896,6 +992,22 @@ def k5_launches(vocoder, dtype, on_card: bool) -> int:
                if not vocoder._fused(cfg.upsample_initial_channel >> (i + 1), dtype)]
     return 1 + sum(len(vocoder.resblocks[i * nk + j].activations)
                    for i in unfused for j in range(nk))
+
+
+def k6_launches(vocoder, dtype, on_card: bool) -> int:
+    """K6 launches of one vocoder forward on the card without autograd: each
+    resblock conv of an unfused resblock-"1" stage that does not take the
+    int8 knob, in bf16 (72 in the serving vocoder: 4 stages x 3 resblocks x
+    6 convs). Every mel the phases feed it has a length that meets TMA's
+    alignment at every stage."""
+    cfg = vocoder.config
+    if not on_card or dtype != torch.bfloat16 or cfg.resblock != "1":
+        return 0
+    nk = len(cfg.resblock_kernel_sizes)
+    widths = [cfg.upsample_initial_channel >> (i + 1) for i in range(len(cfg.upsample_rates))]
+    k6 = [c for c in widths if not vocoder._fused(c, dtype)
+          and not 0 < vocoder.int8_min_channels <= c]
+    return len(k6) * nk * 2 * len(cfg.resblock_dilation_sizes[0])
 
 
 def counts_with(**nonzero) -> dict:
@@ -957,9 +1069,11 @@ def generate_phase(device, mods, full: bool, card: dict) -> dict:
     expect = (batch, latent * 2 * 256)
     on_card = device.type == "cuda"
     n_k5 = k5_launches(mods.vocoder, torch.bfloat16, on_card)
+    n_k6 = k6_launches(mods.vocoder, torch.bfloat16, on_card)
     ok = (tuple(wav.shape) == expect and bool(torch.isfinite(wav).all())
           and wav.abs().max().item() <= 1.0
-          and launches == counts_with(amp_stage_mma=2 if on_card else 0, alias_free_act=n_k5))
+          and launches == counts_with(amp_stage_mma=2 if on_card else 0, alias_free_act=n_k5,
+                                      wide_conv=n_k6))
     row = {"batch": batch, "wav_shape": list(wav.shape), "mel_shape": list(mel.shape),
            "finite": bool(torch.isfinite(wav).all()), "wav_abs_max": wav.abs().max().item(),
            "wav_std": wav.std().item(),
@@ -998,7 +1112,7 @@ def generate_phase(device, mods, full: bool, card: dict) -> dict:
     n_flash = 2 * len(pipe.modules.dit.blocks) * 2 if on_card else 0  # 2 LCM steps
     if row["launches_with_flash"] != counts_with(amp_stage_mma=2 if on_card else 0,
                                                  flash_attention_tc=n_flash,
-                                                 alias_free_act=n_k5):
+                                                 alias_free_act=n_k5, wide_conv=n_k6):
         raise AssertionError(f"LCM generate with flash: {row['launches_with_flash']}")
     emit({"phase": "generate", **row})
     return row
@@ -1256,8 +1370,10 @@ def native_ckpt_phase(device, mods, full: bool, card: dict, tmp: str) -> dict:
     emit({"phase": "native_ckpt", **row})
     del fresh, loaded
     if not (row["repeat_equal"] and row["bit_exact_after_load"]
-            and counts == counts_with(amp_stage_mma=k1, alias_free_act=k5_launches(
-                mods.vocoder, torch.bfloat16, on_card))):
+            and counts == counts_with(
+                amp_stage_mma=k1,
+                alias_free_act=k5_launches(mods.vocoder, torch.bfloat16, on_card),
+                wide_conv=k6_launches(mods.vocoder, torch.bfloat16, on_card))):
         raise AssertionError(f"native_ckpt: the loaded pipeline differs: {row}")
     return row
 
@@ -1414,7 +1530,8 @@ def teacher_phase(device, mods, full: bool, card: dict) -> dict:
            "wav_std": wav.std().item(), "launches": launches}
     n_flash = n_attn * n_steps if on_card else 0
     want = counts_with(amp_stage_mma=2 if on_card else 0, flash_attention_tc=n_flash,
-                       alias_free_act=k5_launches(mods.vocoder, torch.bfloat16, on_card))
+                       alias_free_act=k5_launches(mods.vocoder, torch.bfloat16, on_card),
+                       wide_conv=k6_launches(mods.vocoder, torch.bfloat16, on_card))
     if not (tuple(wav.shape) == expect and row["finite"] and row["wav_abs_max"] <= 1.0
             and launches == want):
         emit({"phase": "teacher", **row})
@@ -1491,7 +1608,8 @@ def flag_teacher_phase(device, mods, full: bool, card: dict) -> dict:
     n_flash = 2 * len(flag.blocks) * n_steps if on_card else 0
     want = counts_with(amp_stage_mma=2 if on_card else 0, flash_attention_tc=n_flash,
                        flash_attention_cross=n_flash // 2,
-                       alias_free_act=k5_launches(mods.vocoder, torch.bfloat16, on_card))
+                       alias_free_act=k5_launches(mods.vocoder, torch.bfloat16, on_card),
+                       wide_conv=k6_launches(mods.vocoder, torch.bfloat16, on_card))
     if not (tuple(wav.shape) == expect and row["finite"] and row["wav_abs_max"] <= 1.0
             and launches == want):
         emit({"phase": "flag_teacher", **row})
@@ -1816,7 +1934,8 @@ def prewarm_phase(device, mods, full: bool, card: dict) -> dict:
     if not (all(h == "captured" for h in hows.values()) and len(hows) == 4 and diff <= REPLAY_TOL
             and row["k1_launches_per_replay"] == 2
             and replay_counts == counts_with(
-                amp_stage_mma=2, alias_free_act=k5_launches(mods.vocoder, torch.bfloat16, True))
+                amp_stage_mma=2, alias_free_act=k5_launches(mods.vocoder, torch.bfloat16, True),
+                wide_conv=k6_launches(mods.vocoder, torch.bfloat16, True))
             and bool(torch.isfinite(wav_r).all())):
         raise AssertionError(f"prewarm: {row}")
     pipe._graphs.clear()
@@ -2115,13 +2234,13 @@ def training_counts_zero(kind: str) -> dict:
     phases: the scorers, and the acceptance generate at stage knob 0; every
     phase whose path holds no TPU-kernel counterpart) runs BigVGAN unfused
     and the DiT on einsum attention, so K1, K3 and K4 must not have
-    launched; K5 must have launched as often as its vocoder forwards owed
-    (`_k5_due`: a discriminator step draws the generator's waveform
-    without autograd)."""
+    launched; K5 and K6 must have launched as often as its vocoder forwards
+    owed (`_k5_due`, `_k6_due`: a discriminator step draws the generator's
+    waveform without autograd)."""
     counts = read_counts()
-    if counts != counts_with(alias_free_act=_k5_due):
+    if counts != counts_with(alias_free_act=_k5_due, wide_conv=_k6_due):
         raise AssertionError(f"{kind}: launches {counts}, expected none but K5's "
-                             f"{_k5_due}")
+                             f"{_k5_due} and K6's {_k6_due}")
     return counts
 
 
@@ -3849,7 +3968,8 @@ def _tensors(sd) -> list:
 
 
 def kernels_line(checks, k2_checks, flash_checks, times, k2_times, flash_time, gen_row,
-                 teacher_row, act_checks, act_times, interior, build_row, act_forms) -> dict:
+                 teacher_row, act_checks, act_times, interior, build_row, act_forms,
+                 wide_forms) -> dict:
     """One entry per kernel: launches on its path (K1: the LCM generate,
     every one on its tensor-core kernel, launches_mma; K3: the teacher
     generate; K4: the profiler run; K5: the LCM generate; K2a/K2b lie on
@@ -3857,7 +3977,9 @@ def kernels_line(checks, k2_checks, flash_checks, times, k2_times, flash_time, g
     both fused stages of one batch-8 generate, summed; K3: one launch at the
     teacher's shape; K4: its four profiler launches, n_rep 2 and 6 at both
     shapes, summed; K5: the 73 launches of one batch-8 generate, 18 per
-    unfused stage and one for activation_post, from the act_forms rows)."""
+    unfused stage and one for activation_post, from the act_forms rows; K6:
+    the 72 launches of one batch-8 generate, from the wide_conv_forms rows,
+    against cuDNN's same convs as its library_ms)."""
     measured = bool(times)
     nm = "not measured"
     stage_shapes = sorted({(r["C"], r["T"]) for r in times.values()}, reverse=True)
@@ -3941,6 +4063,22 @@ def kernels_line(checks, k2_checks, flash_checks, times, k2_times, flash_time, g
                 "f32_bound_ms": per_request("f32_bound_ms"), "library_ms": None,
                 "library_note": "no single PyTorch call computes an alias-free SnakeBeta",
                 "per_case": act_forms})
+    w8 = [r for r in wide_forms if r["batch"] == 8]
+    w_sum = lambda key: sum(r[key] for r in w8) if w8 else nm  # noqa: E731
+    out.append({"name": "wide_conv", "route": "cuda",
+                "source": "audiolcm_torch/csrc/wide_conv.cu",
+                "units": "tensor cores (wgmma m64nNk16 bf16, A from registers, f32 sums)",
+                "replaces": "no Pallas kernel: XLA's convs in audiolcm_tpu/models/bigvgan.py",
+                "launches": gen_row["launches"]["wide_conv"],
+                "bf16_mean_err_ratio_max": max((e["k6_mean_err"] / e["cudnn_mean_err"]
+                                                for r in wide_forms
+                                                for e in r["errors"].values()), default=nm),
+                "ms": w_sum("k6_ms"), "device_ms": w_sum("k6_device_ms"),
+                "bound_ms": w_sum("bound_ms"), "bound_by": "operations",
+                "plain_ms": None, "library_ms": w_sum("cudnn_ms"),
+                "library_note": "the 72 convs of a b8 request through cuDNN, with the bf16 sums",
+                "sass_hgmma": build_row.get("wide_conv_sass_hgmma", nm),
+                "per_case": wide_forms})
     return {"kernels": out}
 
 
@@ -3989,7 +4127,7 @@ def main(argv=None) -> int:
     flash_checks = check_flash_phase(device, flash_cases)
     act_checks = check_act_phase(device, shapes, rehearsal)
     mark("check")
-    times, k2_times, flash_time, act_times, act_forms = {}, {}, {}, [], []
+    times, k2_times, flash_time, act_times, act_forms, wide_forms = {}, {}, {}, [], [], []
     flag_flash_times = []
     if not rehearsal:
         times = time_phase(device, shapes[:2], card)
@@ -3999,6 +4137,7 @@ def main(argv=None) -> int:
                             time_flash_phase(device, FLAG_CROSS[0], card, tk=FLAG_CROSS[3])]
         act_times = time_act_phase(device, shapes[:2], card)
         act_forms = act_forms_phase(device, card)
+        wide_forms = wide_conv_forms_phase(device, card)
     mark("time")
     mods = build_modules(device, full=not rehearsal)
     gen_row = generate_phase(device, mods, full=not rehearsal, card=card)
@@ -4055,7 +4194,8 @@ def main(argv=None) -> int:
     emit({"phase": "seconds", "total": marks[-1][1] - marks[0][1],
           "by_phase": {n: t - marks[i][1] for i, (n, t) in enumerate(marks[1:])}})
     line = kernels_line(checks, k2_checks, flash_checks, times, k2_times, flash_time, gen_row,
-                        teacher_row, act_checks, act_times, interior, build_row, act_forms)
+                        teacher_row, act_checks, act_times, interior, build_row, act_forms,
+                        wide_forms)
     k3 = next(k for k in line["kernels"] if k["name"] == "flash_attention")
     k3.update(launches_flag_teacher=flag_row["launches"]["flash_attention.tc"],
               launches_flag_teacher_cross=flag_row["launches"]["flash_attention.cross"],

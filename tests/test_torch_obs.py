@@ -306,7 +306,8 @@ def test_k1_and_k3_count_as_many_launches_per_replay_as_per_eager_call(card_pipe
     replay, eager = requests(obs.snapshot())
     assert (replay["kind"], eager["kind"]) == ("replay", "eager")
     n_flash = 2 * 2 * len(pipe.modules.dit.blocks)  # 2 LCM steps, 2 self-attentions a block
-    # K5: 18 activations in each of the four unfused stages, and activation_post
+    # K5: 18 activations in each of the four unfused stages, and activation_post;
+    # K6: the 18 resblock convs of each of those stages
     assert replay["counts"] == eager["counts"] == {"amp_stage.mma": 2,
                                                     "flash_attention.tc": n_flash,
-                                                    "alias_free_act": 73}
+                                                    "alias_free_act": 73, "wide_conv": 72}
