@@ -6,8 +6,8 @@ serialises the executable, so that a later process loads it instead of
 tracing and compiling. The eager port has nothing to compile per shape; what
 it pays per call is the host's launch of a few thousand kernels. Here the
 whole generate, from the token-id buffers to the waveform (text towers, the
-LCM steps, the VAE decode and the vocoder, the fused-stage kernel K1
-included), is captured once per bucket as a CUDA graph and replayed per
+LCM steps, the VAE decode and the vocoder with its kernels K1, K5 and K6),
+is captured once per bucket as a CUDA graph and replayed per
 request.
 
 A graph lives in its process: graphs do not persist across processes. The
@@ -51,7 +51,8 @@ class CapturedGenerate:
     Before the capture the generate runs once eagerly on a side stream: that builds the kernels' libraries (nvcc at first use), fills
     the device caches the forward reads (T5 buckets, FIR filters, sampler
     scalars) and lets cuDNN and cuBLAS pick their algorithms, none of which
-    may happen inside a capture. K1's weight packing
+    may happen inside a capture. K6's weights are packed before it, when
+    the pipeline is built (`BigVGAN.pack_wide_conv`); K1's weight packing
     (`amp_stage.pack_stage_params_mma`) stays inside the capture: its
     buffers come from the graph's pool and the packing replays with the
     graph. The recorder (`obs`) holds what the capture recorded (`tally`):

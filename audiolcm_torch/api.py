@@ -60,10 +60,6 @@ def build_pipeline(
     use_flash: Optional[bool] = None,
     fast_snake: bool = False,
     pallas_stage_max_channels: int = 0,
-    pallas_stage_accum: str = "bf16",
-    pallas_stage_conv: str = "tap",
-    int8_min_channels: int = 0,
-    fold_t_segments: int = 0,
     fuse_text: bool = True,
     fuse_qkv: bool = False,
     profile: Optional[str] = None,
@@ -78,19 +74,18 @@ def build_pipeline(
     (nn/flash_attention.py; its plain version on the CPU). fast_snake=True
     swaps the vocoder snakes' cos for a polynomial.
     pallas_stage_max_channels=48 runs the vocoder's two narrowest stages
-    through the fused AMP-stage kernel (nn/amp_stage.py); the pallas_stage_*
-    names are the JAX package's knobs.
+    through the fused AMP-stage kernel (nn/amp_stage.py); the name is the
+    JAX package's knob. The vocoder's other stages route themselves
+    (`BigVGAN.stage_route`).
 
     profile="serving" sets fast_snake=True and pallas_stage_max_channels=48
-    (when 0). Unlike the JAX package's serving profile it leaves the
-    batch-1 fold (fold_t_segments) off: the fold works around the TPU's
-    batch-1 layout, and on the card it is slower. The batch-1 10 s serving
-    generate (bf16, eager) took 98.8 ms with the fold off and 119.8 ms at
-    fold 8 (device busy 74.5 and 96.4 ms; NVIDIA H100 80GB HBM3, 700.00 W;
-    chip_smoke.py's `fold` row). fold_t_segments=8 stays available and is
-    exact (nn/fold.py). int8_min_channels is a parity knob, off in every
-    profile, as in the JAX package. profile=None or "parity" keeps the
-    defaults.
+    (when 0). The JAX package's serving profile also folds batch-1 stages
+    into time segments, and its int8 resblock convs are a parity knob; the
+    port has neither: the fold works around the TPU's batch-1 layout and was slower
+    on the card (batch-1 10 s generate, bf16, eager: 98.8 ms unfolded, 119.8
+    ms at fold 8; NVIDIA H100 80GB HBM3, 700.00 W), and the int8 convs
+    1.02-1.23x slower than cuDNN's f32 convs (the f32 vocoder on one 10 s
+    mel). profile=None or "parity" keeps the defaults.
     """
     if profile == "serving":
         fast_snake = True
@@ -104,9 +99,7 @@ def build_pipeline(
     voc_sd, voc_args = load_vocoder_dir(vocoder_path)
     vocoder = BigVGAN(
         dataclasses.replace(cfg_mod.vocoder_config_from_args(voc_args), fast_snake=fast_snake),
-        pallas_stage_max_channels=pallas_stage_max_channels,
-        pallas_stage_accum=pallas_stage_accum, pallas_stage_conv=pallas_stage_conv,
-        int8_min_channels=int8_min_channels, fold_t_segments=fold_t_segments)
+        pallas_stage_max_channels=pallas_stage_max_channels)
     modules = PipelineModules(
         dit=cfg.build_dit(use_flash=bool(use_flash), fuse_qkv=fuse_qkv),
         vae=cfg.build_vae(), vocoder=vocoder,

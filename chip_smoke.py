@@ -60,11 +60,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                 capture seconds and pool bytes per bucket, the replay
                 against the eager waveform, replay and eager ms with busy
                 ms and idle share, K1's launches per replay from the
-                device trace; then fold (the batch-1 generate at fold 0
-                and 8), distill and teacher_train (one step on the card
-                against the CPU, 5 steps of Trainer.fit, a checkpoint
-                restored bit-exactly, ms per step), int8 (the f32 vocoder
-                with int8 convs against without)
+                device trace; then distill and teacher_train (one step on
+                the card against the CPU, 5 steps of Trainer.fit, a
+                checkpoint restored bit-exactly, ms per step)
   8. interior — the stage-interior profiler (audiolcm_torch.tools.
                 profile_stage_interior) at both serving shapes, one line per
                 row, with the launch counts of that run: K1 variants and the
@@ -166,10 +164,6 @@ PEAK_F32 = 67e12  # H100 SXM float32 rate outside the tensor cores, FLOP/s
 # bf16 generate, CUDA-graph replay vs eager from one generator seed: the same
 # kernels on the same inputs; cuBLAS may pick other algorithms in a capture
 REPLAY_TOL = 1e-3
-FOLD_F32_TOL = 2e-5  # f32 batch-1 waveform, fold 8 vs 0: the f32 module bar
-# bf16 batch-1 waveform's mean error vs f32, fold 8 over fold 0: two bf16
-# roundings of one function through different cuDNN algorithms
-FOLD_BF16_RATIO = 1.05
 TRAIN_RTOL = 1e-4  # f32 training step: loss card vs CPU; the update's floor (L2 vs f64)
 VAE_SGD_LR = 1e-6  # the VAE GAN parity step's SGD rate: updates ~1e-2 of O(0.05) weights
 TEXT_TOL = 1e-4  # f32 LAION text encodes, card vs CPU: 12 roberta layers summed in another order
@@ -538,7 +532,7 @@ def act_forms_phase(device, card: dict) -> list:
                        "kernel_device_ms": kernel_device_ms(kernel, "alias_free_act_kernel", 20)}
                 want = K.alias_free_act_plain(x.float(), alpha.float(), beta.float(), True, True)
                 n0 = obs.counters().get("alias_free_act", 0)
-                kb = act(x, False).float()
+                kb = act(x).float()
                 sync(device)
                 row["launches"] = obs.counters().get("alias_free_act", 0) - n0
                 row["bf16_mean_err"] = (kb - want).abs().mean().item()
@@ -957,8 +951,8 @@ def track_k5_due() -> None:
     def owing(self, mel):
         global _k5_due, _k6_due
         dtype, on_card = next(self.parameters()).dtype, mel.is_cuda and not torch.is_grad_enabled()
-        _k5_due += k5_launches(self, dtype, on_card)
-        _k6_due += k6_launches(self, dtype, on_card)
+        _k5_due += k5_launches(self, dtype, on_card, mel.shape[1])
+        _k6_due += k6_launches(self, dtype, on_card, mel.shape[1])
         return forward(self, mel)
 
     BigVGAN.forward = owing
@@ -980,34 +974,29 @@ def read_counts() -> dict:
     return {k: now.get(k, 0) - _counts_base.get(k, 0) for k in COUNTERS}
 
 
-def k5_launches(vocoder, dtype, on_card: bool) -> int:
+def stage_launches(vocoder, dtype, frames: int, routes: tuple) -> int:
+    """Activations, one per resblock conv in resblock "1", of the stages
+    whose route (`BigVGAN.stage_route`) on the card without autograd, for a
+    mel of `frames`, is one of `routes`."""
+    nk, card = len(vocoder.config.resblock_kernel_sizes), torch.device("cuda")
+    with torch.no_grad():
+        return sum(len(blk.activations) for i in range(len(vocoder.ups))
+                   if vocoder.stage_route(i, dtype, card, frames) in routes
+                   for blk in vocoder.resblocks[i * nk:(i + 1) * nk])
+
+
+def k5_launches(vocoder, dtype, on_card: bool, frames: int) -> int:
     """K5 launches of one vocoder forward on the card without autograd: each
-    activation of an unfused stage, and activation_post (73 in the serving
+    activation outside a fused stage, and activation_post (73 in the serving
     vocoder, whose stages C <= 48 are fused)."""
-    if not on_card:
-        return 0
-    cfg = vocoder.config
-    nk = len(cfg.resblock_kernel_sizes)
-    unfused = [i for i in range(len(cfg.upsample_rates))
-               if not vocoder._fused(cfg.upsample_initial_channel >> (i + 1), dtype)]
-    return 1 + sum(len(vocoder.resblocks[i * nk + j].activations)
-                   for i in unfused for j in range(nk))
+    return 1 + stage_launches(vocoder, dtype, frames, ("wide", "torch")) if on_card else 0
 
 
-def k6_launches(vocoder, dtype, on_card: bool) -> int:
+def k6_launches(vocoder, dtype, on_card: bool, frames: int) -> int:
     """K6 launches of one vocoder forward on the card without autograd: each
-    resblock conv of an unfused resblock-"1" stage that does not take the
-    int8 knob, in bf16 (72 in the serving vocoder: 4 stages x 3 resblocks x
-    6 convs). Every mel the phases feed it has a length that meets TMA's
-    alignment at every stage."""
-    cfg = vocoder.config
-    if not on_card or dtype != torch.bfloat16 or cfg.resblock != "1":
-        return 0
-    nk = len(cfg.resblock_kernel_sizes)
-    widths = [cfg.upsample_initial_channel >> (i + 1) for i in range(len(cfg.upsample_rates))]
-    k6 = [c for c in widths if not vocoder._fused(c, dtype)
-          and not 0 < vocoder.int8_min_channels <= c]
-    return len(k6) * nk * 2 * len(cfg.resblock_dilation_sizes[0])
+    resblock conv of a "wide" stage (72 in the serving vocoder: 4 stages x 3
+    resblocks x 6 convs)."""
+    return stage_launches(vocoder, dtype, frames, ("wide",)) if on_card else 0
 
 
 def counts_with(**nonzero) -> dict:
@@ -1068,8 +1057,8 @@ def generate_phase(device, mods, full: bool, card: dict) -> dict:
     launches = read_counts()
     expect = (batch, latent * 2 * 256)
     on_card = device.type == "cuda"
-    n_k5 = k5_launches(mods.vocoder, torch.bfloat16, on_card)
-    n_k6 = k6_launches(mods.vocoder, torch.bfloat16, on_card)
+    n_k5 = k5_launches(mods.vocoder, torch.bfloat16, on_card, 2 * latent)
+    n_k6 = k6_launches(mods.vocoder, torch.bfloat16, on_card, 2 * latent)
     ok = (tuple(wav.shape) == expect and bool(torch.isfinite(wav).all())
           and wav.abs().max().item() <= 1.0
           and launches == counts_with(amp_stage_mma=2 if on_card else 0, alias_free_act=n_k5,
@@ -1141,8 +1130,9 @@ def knob_phase(device, mods, full: bool) -> dict:
             with torch.inference_mode():
                 wavs[knob] = voc(mel).float()
             sync(device)
-            row[f"knob_{knob}"] = {"fused_widths": [c for c in widths
-                                                    if voc._fused(c, torch.bfloat16)],
+            row[f"knob_{knob}"] = {"fused_widths": [
+                c for i, c in enumerate(widths)
+                if voc.stage_route(i, torch.bfloat16, device, frames) == "fused"],
                                    "launches_mma": read_counts()["amp_stage.mma"]}
     finally:
         voc.pallas_stage_max_channels = 48
@@ -1372,8 +1362,8 @@ def native_ckpt_phase(device, mods, full: bool, card: dict, tmp: str) -> dict:
     if not (row["repeat_equal"] and row["bit_exact_after_load"]
             and counts == counts_with(
                 amp_stage_mma=k1,
-                alias_free_act=k5_launches(mods.vocoder, torch.bfloat16, on_card),
-                wide_conv=k6_launches(mods.vocoder, torch.bfloat16, on_card))):
+                alias_free_act=k5_launches(mods.vocoder, torch.bfloat16, on_card, 2 * latent),
+                wide_conv=k6_launches(mods.vocoder, torch.bfloat16, on_card, 2 * latent))):
         raise AssertionError(f"native_ckpt: the loaded pipeline differs: {row}")
     return row
 
@@ -1530,8 +1520,9 @@ def teacher_phase(device, mods, full: bool, card: dict) -> dict:
            "wav_std": wav.std().item(), "launches": launches}
     n_flash = n_attn * n_steps if on_card else 0
     want = counts_with(amp_stage_mma=2 if on_card else 0, flash_attention_tc=n_flash,
-                       alias_free_act=k5_launches(mods.vocoder, torch.bfloat16, on_card),
-                       wide_conv=k6_launches(mods.vocoder, torch.bfloat16, on_card))
+                       alias_free_act=k5_launches(mods.vocoder, torch.bfloat16, on_card,
+                                                  2 * latent),
+                       wide_conv=k6_launches(mods.vocoder, torch.bfloat16, on_card, 2 * latent))
     if not (tuple(wav.shape) == expect and row["finite"] and row["wav_abs_max"] <= 1.0
             and launches == want):
         emit({"phase": "teacher", **row})
@@ -1608,8 +1599,9 @@ def flag_teacher_phase(device, mods, full: bool, card: dict) -> dict:
     n_flash = 2 * len(flag.blocks) * n_steps if on_card else 0
     want = counts_with(amp_stage_mma=2 if on_card else 0, flash_attention_tc=n_flash,
                        flash_attention_cross=n_flash // 2,
-                       alias_free_act=k5_launches(mods.vocoder, torch.bfloat16, on_card),
-                       wide_conv=k6_launches(mods.vocoder, torch.bfloat16, on_card))
+                       alias_free_act=k5_launches(mods.vocoder, torch.bfloat16, on_card,
+                                                  2 * latent),
+                       wide_conv=k6_launches(mods.vocoder, torch.bfloat16, on_card, 2 * latent))
     if not (tuple(wav.shape) == expect and row["finite"] and row["wav_abs_max"] <= 1.0
             and launches == want):
         emit({"phase": "flag_teacher", **row})
@@ -1934,109 +1926,12 @@ def prewarm_phase(device, mods, full: bool, card: dict) -> dict:
     if not (all(h == "captured" for h in hows.values()) and len(hows) == 4 and diff <= REPLAY_TOL
             and row["k1_launches_per_replay"] == 2
             and replay_counts == counts_with(
-                amp_stage_mma=2, alias_free_act=k5_launches(mods.vocoder, torch.bfloat16, True),
-                wide_conv=k6_launches(mods.vocoder, torch.bfloat16, True))
+                amp_stage_mma=2,
+                alias_free_act=k5_launches(mods.vocoder, torch.bfloat16, True, 2 * latent),
+                wide_conv=k6_launches(mods.vocoder, torch.bfloat16, True, 2 * latent))
             and bool(torch.isfinite(wav_r).all())):
         raise AssertionError(f"prewarm: {row}")
     pipe._graphs.clear()
-    return row
-
-
-def fold_phase(device, mods, full: bool, card: dict) -> dict:
-    """The batch-1 10 s serving generate with fold_t_segments 0 and 8 from
-    one generator seed. f32: the waveforms equal within FOLD_F32_TOL (the
-    same ops on overlapping segments). bf16: median ms of 5 and the profile
-    at each fold; cuDNN picks other bf16 conv algorithms for a batch of 8
-    segments than for one clip, so the two bf16 waveforms differ by bf16
-    rounding: the bf16 waveform's mean error against the f32 one at fold 8
-    is held to FOLD_BF16_RATIO x that at fold 0 (the same error up to the
-    spread of two roundings). The row also holds the two bf16 waveforms'
-    difference and, as its yardstick, the bf16 vocoder's difference between
-    one mel alone and the same mel in a batch of 8, with no fold."""
-    from audiolcm_torch.pipeline import AudioLCMPipeline
-
-    latent = 312 if full else 16
-    ids = token_ids(mods, 1, 77, seed=3)
-    voc = mods.vocoder
-    row = {"batch": 1, "latent": latent}
-    on_card = device.type == "cuda"
-    wavs = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        pipe = AudioLCMPipeline(mods, compute_dtype=dtype, device=device)
-        run = lambda: pipe.generate(ids[0], ids[1], latent,
-                                    generator=torch.Generator(device).manual_seed(5))
-        for fold in (0, 8):
-            voc.fold_t_segments = fold
-            with torch.inference_mode():
-                wavs[dtype, fold], mel = run()
-            if on_card and dtype == torch.bfloat16:
-                ms = median_ms(run)
-                row[f"fold_{fold}"] = {"ms": ms, "profile": profile_run(run, ms)}
-        voc.fold_t_segments = 0
-    with torch.inference_mode():
-        one = voc(mel.bfloat16()).float()
-        eight = voc(mel.bfloat16().expand(8, -1, -1).contiguous())[:1].float()
-    f32, b0, b8 = wavs[torch.float32, 0], wavs[torch.bfloat16, 0], wavs[torch.bfloat16, 8]
-    err0, err8 = (b0 - f32).abs().mean().item(), (b8 - f32).abs().mean().item()
-    row.update(f32_max_abs_diff=(wavs[torch.float32, 8] - f32).abs().max().item(),
-               f32_tol=FOLD_F32_TOL, bf16_max_abs_diff=(b8 - b0).abs().max().item(),
-               bf16_batch8_vs_batch1_max_abs=(eight - one).abs().max().item(),
-               bf16_mean_err_vs_f32_fold0=err0, bf16_mean_err_vs_f32_fold8=err8,
-               bf16_err_ratio=err8 / err0 if err0 else 1.0, bar=FOLD_BF16_RATIO,
-               card=card["nvidia_smi"])
-    emit({"phase": "fold", **row})
-    if not (row["f32_max_abs_diff"] <= FOLD_F32_TOL and row["bf16_err_ratio"] <= FOLD_BF16_RATIO
-            and bool(torch.isfinite(b8).all())):
-        raise AssertionError(f"fold 8 vs 0: {row}")
-    return row
-
-
-def int8_phase(device, full: bool, card: dict) -> dict:
-    """The f32 vocoder (unfused, exact cos) on one 10 s mel with
-    int8_min_channels=384 (C=768 and 384 as int8 products) against the same
-    vocoder without: mean and max abs error, and CUDA-event ms of each. The
-    JAX package's bar for an int8 block (tests/test_int8_conv.py): the mean
-    error at most max(4 x the bf16 vocoder's mean error, 2 % of the
-    waveform's mean magnitude)."""
-    import copy
-
-    from audiolcm_torch.models.bigvgan import BigVGAN, BigVGANConfig
-
-    cfg = BigVGANConfig() if full else BigVGANConfig(upsample_initial_channel=192)
-    knob = 384 if full else 96
-    frames = 624 if full else 16
-    with torch.device(device):
-        voc = BigVGAN(cfg).eval()
-    init_random_(voc, torch.Generator(device).manual_seed(11))
-    mel = 0.5 * torch.randn(1, frames, 80, generator=torch.Generator(device).manual_seed(12),
-                            device=device) - 4.0
-    out = {}
-    with torch.inference_mode():
-        for k in (0, knob):
-            voc.int8_min_channels = k
-            out[k] = voc(mel)
-        voc.int8_min_channels = 0
-        bf16 = copy.deepcopy(voc).to(torch.bfloat16)(mel.bfloat16()).float()
-    sync(device)
-    err = (out[knob] - out[0]).abs()
-    wav_mean = out[0].abs().mean().item()
-    bf16_err = (bf16 - out[0]).abs().mean().item()
-    row = {"frames": frames, "int8_min_channels": knob,
-           "int8_widths": [c for c in (cfg.upsample_initial_channel >> (i + 1)
-                                       for i in range(len(cfg.upsample_rates)))
-                           if c > voc.cf_max_channels and c >= knob],
-           "mean_abs_err": err.mean().item(), "max_abs_err": err.max().item(),
-           "bf16_mean_abs_err": bf16_err, "wav_mean_abs": wav_mean,
-           "bar": max(4 * bf16_err, 0.02 * wav_mean)}
-    if device.type == "cuda":
-        with torch.inference_mode():
-            for k in (0, knob):
-                voc.int8_min_channels = k
-                row[f"ms_int8_{k}"] = event_ms(lambda: voc(mel), 3)
-        row["card"] = card["nvidia_smi"]
-    emit({"phase": "int8", **row})
-    if not (bool(torch.isfinite(out[knob]).all()) and 0 < row["mean_abs_err"] <= row["bar"]):
-        raise AssertionError(f"int8 vocoder: {row}")
     return row
 
 
@@ -4151,8 +4046,7 @@ def main(argv=None) -> int:
     flag_row = flag_teacher_phase(device, mods, full=not rehearsal, card=card)
     mark("teacher")
     prewarm_row = prewarm_phase(device, mods, full=not rehearsal, card=card)
-    fold_phase(device, mods, full=not rehearsal, card=card)
-    mark("prewarm+fold")
+    mark("prewarm")
     train_phase(device, mods, full=not rehearsal, card=card, kind="distill")
     train_phase(device, mods, full=not rehearsal, card=card, kind="teacher_train")
     mark("distill+teacher_train")
@@ -4163,8 +4057,6 @@ def main(argv=None) -> int:
     del mods
     budget_row = error_budget_phase(device, full=not rehearsal, card=card)
     mark("error_budget")
-    int8_phase(device, full=not rehearsal, card=card)
-    mark("int8")
     interior = interior_phase(device, shapes[:2], card, rehearsal)
     mark("interior")
     with tempfile.TemporaryDirectory() as tmp:

@@ -23,7 +23,7 @@ import pytest
 import torch
 
 from audiolcm_torch import obs
-from audiolcm_torch.models.bigvgan import Activation1d
+from audiolcm_torch.models.bigvgan import CF_STAGE_MAX_CHANNELS, Activation1d
 from audiolcm_torch.nn import alias_free_act as K
 from audiolcm_torch.nn.resample import alias_free_activation_cf, alias_free_taps
 from audiolcm_torch.nn.resample_cf import alias_free_snake_cf
@@ -180,19 +180,22 @@ def test_wrapper_validation_and_cpu_path():
 @pytest.mark.parametrize("polyphase", [False, True])
 def test_activation1d_on_the_cpu_and_under_autograd_is_unchanged(kind, logscale, polyphase):
     """On the CPU, with and without autograd, Activation1d runs the two torch
-    forms it always ran, bit for bit, and launches nothing."""
-    act = _module(5, kind, logscale, True, seed=11)
-    x = torch.from_numpy(_x(11, 2, 5, 77))
+    forms it always ran, bit for bit, and launches nothing: the polyphase
+    form up to CF_STAGE_MAX_CHANNELS, the depthwise conv above it."""
+    c = 5 if polyphase else CF_STAGE_MAX_CHANNELS + 8
+    act = _module(c, kind, logscale, True, seed=11)
+    assert act.polyphase == polyphase
+    x = torch.from_numpy(_x(11, 2, c, 77))
     a, b = act.act.linear_params()
     before = obs.counters()
-    got = act(x, polyphase)
+    got = act(x)
     assert got.requires_grad  # autograd recorded it: the trainer's path
     with torch.no_grad():
         was = (alias_free_snake_cf(x, a, b, fast=True) if polyphase
                else alias_free_activation_cf(x, act.act))
-        assert torch.equal(got.detach(), was) and torch.equal(act(x, polyphase), was)
+        assert torch.equal(got.detach(), was) and torch.equal(act(x), was)
     with torch.inference_mode():
-        assert torch.equal(act(x, polyphase), was)
+        assert torch.equal(act(x), was)
     assert obs.counters() == before
 
 
@@ -241,7 +244,7 @@ def test_kernel_matches_plain_at_served_shapes_on_card(cuda_device, b, c, t):
     with torch.inference_mode():
         want = K.alias_free_act_plain(x.float(), alpha.float(), beta.float(), True, True)
         n0 = _launches()
-        kb = act(x, False).float()
+        kb = act(x).float()
         torch.cuda.synchronize()
         assert _launches() == n0 + 1
         dw = alias_free_activation_cf(x, act.act).float()
@@ -276,12 +279,12 @@ def test_counter_steps_once_per_launch_and_per_replay_on_card(cuda_device):
     x = torch.randn(2, 96, 4000, device=cuda_device).bfloat16()
     with torch.inference_mode():
         n0 = _launches()
-        eager = act(x, False)
+        eager = act(x)
         assert _launches() == n0 + 1
         graph = torch.cuda.CUDAGraph()
-        act(x, False)  # warm on the side stream the capture uses
+        act(x)  # warm on the side stream the capture uses
         with obs.capture(cuda_device) as tally, torch.cuda.graph(graph):
-            out = act(x, False)
+            out = act(x)
         assert tally.counts == {"alias_free_act": 1}
         n1 = _launches()
         for _ in range(3):
@@ -298,16 +301,17 @@ def test_activation1d_under_autograd_on_card_keeps_the_torch_forms(cuda_device, 
     """Under autograd (the vocoder-GAN trainer) the card runs the torch
     forms, bit for bit, launches nothing and passes gradients back; without
     autograd the same call is one launch of K5."""
-    act = _card_module(96, "snakebeta", True, True, cuda_device, torch.float32)
-    x = torch.randn(2, 96, 1000, device=cuda_device, requires_grad=True)
+    c = CF_STAGE_MAX_CHANNELS if polyphase else 96
+    act = _card_module(c, "snakebeta", True, True, cuda_device, torch.float32)
+    x = torch.randn(2, c, 1000, device=cuda_device, requires_grad=True)
     a, b = act.act.linear_params()
     n0 = _launches()
-    got = act(x, polyphase)
+    got = act(x)
     was = (alias_free_snake_cf(x, a, b, fast=True) if polyphase
            else alias_free_activation_cf(x, act.act))
     assert _launches() == n0 and torch.equal(got, was)
     got.sum().backward()
     assert x.grad is not None and act.act.alpha.grad is not None
     with torch.no_grad():
-        act(x, polyphase)
+        act(x)
     assert _launches() == n0 + 1

@@ -70,28 +70,6 @@ def test_bigvgan_unfused_equals_fused_path(vocoder_case):
     np.testing.assert_allclose(wav.numpy(), golden, atol=2e-5)
 
 
-def test_bigvgan_unported_knobs_raise(vocoder_case):
-    """The item-10 knobs that raised before they were ported now build and
-    run at full width on the (1, 16, 80) mel. fold_t_segments=8 folds the
-    C=48 and C=24 stages (the only ones whose length admits the fold here)
-    and moves no number (atol 2e-5 against JAX's golden); int8_min_channels
-    =384 runs the C=768 and C=384 resblock convs as int8 products: a finite
-    waveform within int8's error of the golden (their parity with JAX is
-    held in tests/test_torch_serving_knobs.py)."""
-    mel, params, golden = vocoder_case
-    folded = assign_state_dict(TorchBigVGAN(TConfig(), fold_t_segments=8),
-                               vocoder_from_jax(params))
-    int8 = assign_state_dict(TorchBigVGAN(TConfig(), int8_min_channels=384),
-                             vocoder_from_jax(params))
-    assert folded.fold_t_segments == 8 and int8.int8_min_channels == 384
-    with torch.no_grad():
-        wav_f = folded(torch.from_numpy(mel)).numpy()
-        wav_8 = int8(torch.from_numpy(mel)).numpy()
-    np.testing.assert_allclose(wav_f, golden, atol=2e-5)
-    assert wav_8.shape == golden.shape and np.isfinite(wav_8).all()
-    assert 0 < np.abs(wav_8 - golden).max() < 0.05 * np.abs(golden).max()
-
-
 @pytest.mark.parametrize("knob", [96, 1536])
 def test_bigvgan_knob_above_route_widths_matches_jax(vocoder_case, knob96_golden, knob):
     """A knob above the widest C a kernel route takes returns the JAX
@@ -101,8 +79,10 @@ def test_bigvgan_knob_above_route_widths_matches_jax(vocoder_case, knob96_golden
     mel, params, _ = vocoder_case
     port = assign_state_dict(TorchBigVGAN(TConfig(), pallas_stage_max_channels=knob),
                              vocoder_from_jax(params))
-    assert [ch for ch in (768, 384, 192, 96, 48, 24) if port._fused(ch, torch.float32)] == [48, 24]
-    assert [ch for ch in (96, 48, 24) if port._fused(ch, torch.bfloat16)] == [48, 24]
+    widths = (768, 384, 192, 96, 48, 24)
+    for dtype in (torch.float32, torch.bfloat16):
+        assert [c for i, c in enumerate(widths)
+                if port.stage_route(i, dtype, torch.device("cpu"), 16) == "fused"] == [48, 24]
     with torch.no_grad():
         wav = port(torch.from_numpy(mel))
     assert wav.shape == knob96_golden.shape == (1, 16 * 256)

@@ -8,8 +8,8 @@ beyond C, f32 sums, the epilogue's bias, residual, running resblock sum and
 take without K6, in f32 to 1e-5, at the four wide widths x kernels
 (3, 7, 11) x dilations (1, 3, 5), T short with a ragged last tile. Then the
 wrapper's checks, the dispatch (`wide_conv.takes`: bf16 on the card without
-autograd, aligned and contiguous; the stage: unfused, resblock "1", int8
-off), the stage loop through K6 against the stage loop without it, and the
+autograd, aligned and contiguous; `BigVGAN.stage_route`: unfused, resblock
+"1"), the stage loop through K6 against the stage loop without it, and the
 stage spans' `fused=False`. Inputs come from numpy seeds.
 
 On the card (`-m gpu`): K6's mean error against an f32 reference at most
@@ -223,26 +223,23 @@ def test_stage_spans_keep_fused_false_on_k6_stages(k6_on_the_cpu):
     assert len(k6_on_the_cpu) == 72
 
 
-@pytest.mark.parametrize("knobs,resblock", [
-    ({"int8_min_channels": 96, "pallas_stage_max_channels": 48}, "1"),
-    ({"pallas_stage_max_channels": 48}, "2")])
-def test_int8_knob_and_resblock_2_keep_the_torch_convs(k6_on_the_cpu, knobs, resblock):
-    """The int8 parity knob's stages and resblock "2" never reach K6; nor does
-    a forward under autograd (the vocoder-GAN trainer)."""
+def test_resblock_2_and_autograd_keep_the_torch_convs(k6_on_the_cpu):
+    """Resblock "2" never reaches K6; nor does a forward under autograd (the
+    vocoder-GAN trainer)."""
     mel = _rand(6, 1, 8, 80, scale=0.3)
-    voc = BigVGAN(BigVGANConfig(resblock=resblock), **knobs).eval()
+    voc = BigVGAN(BigVGANConfig(resblock="2"), pallas_stage_max_channels=48).eval()
     with torch.no_grad():
-        voc(mel)  # int8 from C = 96 up: every unfused stage
+        voc(mel)
     assert not k6_on_the_cpu
     voc = BigVGAN(BigVGANConfig(), pallas_stage_max_channels=48)
     voc(mel)  # autograd on
     assert not k6_on_the_cpu
 
 
-def test_packed_weights_follow_the_weights():
+def test_packed_weights_follow_the_weights(k6_on_the_cpu):
     """`wide_weights` packs once per weight version and again after an
-    in-place update (a checkpoint load); `pack_wide_conv` packs the unfused
-    stages' blocks only."""
+    in-place update (a checkpoint load); `pack_wide_conv` packs the blocks
+    of the stages that take the "wide" route only."""
     torch.manual_seed(0)
     voc = BigVGAN(BigVGANConfig(), pallas_stage_max_channels=48)
     blk = voc.resblocks[0]
@@ -261,6 +258,42 @@ def test_packed_weights_follow_the_weights():
         blk = voc.resblocks[0]
         assert blk.wide_weights() is blk.wide_weights()
         assert torch.equal(blk.wide_weights()[0], W.pack_weight(blk.convs1[0].weight))
+
+
+@pytest.fixture
+def meta_is_the_card(monkeypatch):
+    """The real `takes` with the meta device standing for the card (this
+    machine's torch may have no CUDA)."""
+    real = W.takes
+    monkeypatch.setattr(W, "takes", lambda x: real(_Stub(
+        cuda=x.device.type == "meta", dtype=x.dtype, shape=tuple(x.shape),
+        contiguous=x.is_contiguous())))
+
+
+CARD, CPU, BF16, F32 = "meta", "cpu", torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("c,dtype,device,grad,frames,knob,resblock,route", [
+    (768, BF16, CARD, False, 16, 48, "1", "wide"),
+    (768, BF16, CARD, True, 16, 48, "1", "torch"),  # autograd: the GAN trainer
+    (768, F32, CARD, False, 16, 48, "1", "torch"),
+    (768, BF16, CPU, False, 16, 48, "1", "torch"),
+    (768, BF16, CARD, False, 17, 48, "1", "torch"),  # T = 68: off TMA's 16-byte rows
+    (48, BF16, CARD, False, 16, 48, "1", "fused"),
+    (48, F32, CPU, False, 16, 48, "1", "fused"),
+    (96, BF16, CARD, False, 16, 96, "1", "wide"),  # no K1 tile at C = 96 in bf16
+    (48, BF16, CARD, False, 16, 0, "1", "wide"),
+    (768, BF16, CARD, False, 16, 48, "2", "torch")])
+def test_stage_route_reads_each_observable(meta_is_the_card, c, dtype, device, grad, frames,
+                                          knob, resblock, route):
+    """`BigVGAN.stage_route` for one stage of the shipped widths, one
+    observable changed per row against the first (the route the stage loop,
+    `pack_wide_conv`, the stage spans and the launch predictions take)."""
+    with torch.device("meta"):  # no weights: the route reads the config and the shapes
+        voc = BigVGAN(BigVGANConfig(resblock=resblock), pallas_stage_max_channels=knob)
+    i = (768, 384, 192, 96, 48, 24).index(c)
+    with torch.set_grad_enabled(grad):
+        assert voc.stage_route(i, dtype, torch.device(device), frames) == route
 
 
 # ----------------------------------------------------------------- on the card
