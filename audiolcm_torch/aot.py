@@ -51,11 +51,10 @@ class CapturedGenerate:
     Before the capture the generate runs once eagerly on a side stream: that builds the kernels' libraries (nvcc at first use), fills
     the device caches the forward reads (T5 buckets, FIR filters, sampler
     scalars) and lets cuDNN and cuBLAS pick their algorithms, none of which
-    may happen inside a capture. K6's weights are packed before it, when
-    the pipeline is built (`BigVGAN.pack_wide_conv`); K1's weight packing
-    (`amp_stage.pack_stage_params_mma`) stays inside the capture: its
-    buffers come from the graph's pool and the packing replays with the
-    graph. The recorder (`obs`) holds what the capture recorded (`tally`):
+    may happen inside a capture. K1's and K6's weights are packed before
+    it, when the pipeline is built (`BigVGAN.pack_stage_weights`), so the
+    capture holds no packing: a replay runs each fused stage's kernel
+    alone. The recorder (`obs`) holds what the capture recorded (`tally`):
     the kernel launches, which each replay adds to the launch counters, and
     the stages' device timestamps, which each replay writes anew.
     `capture_s` is the seconds of the warm-up and the capture (the

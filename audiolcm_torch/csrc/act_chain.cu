@@ -111,16 +111,6 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p, float4 a, float4 b) {
   *reinterpret_cast<uint4*>(p) = raw;
 }
 
-// snake() of snake_act.cuh with its per-channel factors made once:
-// al2 = 2 * alpha, hb = 0.5 * binv. Scaling by 0.5 is exact, so
-// (1 - c) * hb equals 0.5 * (1 - c) * binv bit for bit.
-template <bool FAST>
-__device__ __forceinline__ float snake_hb(float h, float al2, float hb) {
-  const float arg = al2 * h;
-  const float c = FAST ? fast_cos(arg) : cosf(arg);
-  return h + (1.0f - c) * hb;
-}
-
 template <typename IO, bool FAST>
 __global__ void __launch_bounds__(NTHREADS, 2) act_chain_kernel(ChainArgs a) {
   extern __shared__ float4 smem4[];

@@ -152,16 +152,6 @@ __device__ __forceinline__ float param_f(const void* v, int i, int is_bf16) {
                  : static_cast<const float*>(v)[i];
 }
 
-// snake() of snake_act.cuh with its per-row factors made once: al2 =
-// 2 * alpha, hb = 0.5 * binv. Scaling by 0.5 is exact, so (1 - c) * hb
-// equals 0.5 * (1 - c) * binv bit for bit.
-template <bool FAST>
-__device__ __forceinline__ float snake_hb(float h, float al2, float hb) {
-  const float arg = al2 * h;
-  const float c = FAST ? fast_cos(arg) : cosf(arg);
-  return h + (1.0f - c) * hb;
-}
-
 // At most 64 registers a thread (no spills): four blocks of MAX_LANES per SM,
 // the occupancy that hid the loads best of 2, 3 and 4 blocks (PERF.md).
 template <typename IO, bool FAST>

@@ -1,10 +1,12 @@
-// Device helpers shared by the AMP stage (amp_stage.cu, K1) and the
-// activation chain (act_chain.cu, K4): the polynomial cos and the SnakeBeta
-// nonlinearity, and K4's element loads and stores in its I/O type. Both
-// kernels compute in f32 and round once to the I/O type.
+// Device helpers shared by the AMP stage (amp_stage.cu, K1), the activation
+// chain (act_chain.cu, K4) and the alias-free activation (alias_free_act.cu,
+// K5): the polynomial cos and the SnakeBeta nonlinearity (also with its
+// per-channel factors made once, snake_hb), and the element loads and
+// stores in an I/O type. The kernels compute in f32 and round once to the
+// I/O type.
 //
 // audiolcm_torch/build.py hashes this header into every library's name, so
-// an edited header rebuilds both kernels.
+// an edited header rebuilds every kernel that includes it.
 
 #pragma once
 
@@ -42,6 +44,16 @@ __device__ __forceinline__ float snake(float h, float alpha, float binv, int fas
   const float arg = (2.0f * alpha) * h;
   const float c = fast ? fast_cos(arg) : cosf(arg);
   return h + 0.5f * (1.0f - c) * binv;
+}
+
+// snake() with its per-channel factors made once: al2 = 2 * alpha,
+// hb = 0.5 * binv. Scaling by 0.5 is exact, so (1 - c) * hb equals
+// 0.5 * (1 - c) * binv bit for bit.
+template <bool FAST>
+__device__ __forceinline__ float snake_hb(float h, float al2, float hb) {
+  const float arg = al2 * h;
+  const float c = FAST ? fast_cos(arg) : cosf(arg);
+  return h + (1.0f - c) * hb;
 }
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) { return min(max(v, lo), hi); }

@@ -15,7 +15,10 @@ routes, decided before any launch from what the stage can observe:
     (nn/amp_stage.py: the sm_90a kernel K1 on the card, its plain version
     on the CPU) when the kernel route of their dtype has a tile for that C
     (`amp_stage.route_takes`), as JAX runs a stage unfused when no tile
-    fits;
+    fits. Its parameters are packed for the kernel once per weight version
+    when no gradient is recorded (`BigVGAN.fused_params`); the pipeline
+    packs them when it is built (`BigVGAN.pack_stage_weights`), so a
+    replay runs only the stage's kernel;
   * "wide" — the other stages of resblock "1" run every resblock conv as
     one launch of the sm_90a kernel K6 (nn/wide_conv.py) when the stage's
     upsampled input is bf16 on the card, no gradient is recorded, T meets
@@ -24,7 +27,7 @@ routes, decided before any launch from what the stage can observe:
     epilogue, a resblock's last conv also the stage's running resblock sum,
     and the stage's last conv scales by 1 / len(resblocks). Its weights are
     packed once per weight version (`AMPBlock1.wide_weights`); the pipeline
-    packs them when it is built (`BigVGAN.pack_wide_conv`);
+    packs them when it is built (`BigVGAN.pack_stage_weights`);
   * "torch" — every other stage runs torch's convs.
 Every alias-free activation outside a fused stage, and `activation_post`,
 is one launch of the sm_90a kernel K5 (nn/alias_free_act.py) when x is on
@@ -49,7 +52,7 @@ from torch import nn
 from audiolcm_torch import obs
 from audiolcm_torch.nn import wide_conv
 from audiolcm_torch.nn.alias_free_act import alias_free_act
-from audiolcm_torch.nn.amp_stage import fused_amp_stage, route_takes, stage_radius
+from audiolcm_torch.nn.amp_stage import PackedStage, fused_amp_stage, pack_stage, route_takes
 from audiolcm_torch.nn.resample import alias_free_activation_cf
 from audiolcm_torch.nn.resample_cf import alias_free_snake_cf
 from audiolcm_torch.nn.snake import Snake, SnakeBeta
@@ -86,6 +89,15 @@ def ConvTranspose1dTorchParity(cin: int, cout: int, kernel_size: int, stride: in
 
 def _same_conv(c: int, k: int, d: int = 1) -> nn.Conv1d:
     return nn.Conv1d(c, c, k, dilation=d, padding=(k * d - d) // 2)
+
+
+def weights_version(tensors) -> tuple:
+    """What a kernel's packing of `tensors` follows: each one's storage,
+    dtype and version (a module made inside `torch.inference_mode()` holds
+    inference tensors, which keep no version: their key follows the
+    storage). K1's and K6's packings are redone when it changes."""
+    return tuple((t.data_ptr(), t.dtype, None if t.is_inference() else t._version)
+                 for t in tensors)
 
 
 class Activation1d(nn.Module):
@@ -137,12 +149,9 @@ class AMPBlock1(nn.Module):
 
     def wide_weights(self) -> list:
         """convs1 then convs2 weights packed for K6 (`wide_conv.pack_weight`),
-        packed again only when a weight's storage, dtype or version changes
-        (a module made inside `torch.inference_mode()` holds inference
-        tensors, which keep no version: their packing follows the storage)."""
+        packed again only when their `weights_version` changes."""
         convs = [*self.convs1, *self.convs2]
-        key = tuple((w.data_ptr(), w.dtype, None if w.is_inference() else w._version)
-                    for w in (c.weight for c in convs))
+        key = weights_version(c.weight for c in convs)
         if self._wide is None or self._wide[0] != key:
             self._wide = (key, [wide_conv.pack_weight(c.weight) for c in convs])
         return self._wide[1]
@@ -215,6 +224,7 @@ class BigVGAN(nn.Module):
         self.activation_post = Activation1d(ch, cfg.activation, cfg.snake_logscale,
                                             cfg.fast_snake, depthwise=cfg.resblock != "1")
         self.conv_post = nn.Conv1d(ch, 1, 7, padding=3)
+        self._fused: dict = {}  # stage -> (key, PackedStage) for K1
 
     def stage_route(self, i: int, dtype: torch.dtype, device: torch.device,
                     frames: int) -> str:
@@ -227,7 +237,7 @@ class BigVGAN(nn.Module):
         if (cfg.resblock == "1" and cfg.activation == "snakebeta"
                 and ch <= self.pallas_stage_max_channels
                 and all(tuple(rd) == dil for rd in cfg.resblock_dilation_sizes)
-                and route_takes(dtype, ch, stage_radius(cfg.resblock_kernel_sizes, dil))):
+                and route_takes(dtype, ch, cfg.resblock_kernel_sizes, dil)):
             return "fused"
         t = frames  # conv_pre keeps the length; each transposed conv stretches it
         for (up,) in itertools.islice(self.ups, i + 1):
@@ -240,17 +250,40 @@ class BigVGAN(nn.Module):
             return "wide"
         return "torch"
 
-    def pack_wide_conv(self) -> None:
-        """Packs K6's weights of every stage that takes the "wide" route in a
-        forward without autograd in the module's dtype on its device, so that
-        no packing waits for a first forward (or falls inside a graph
-        capture)."""
+    def fused_params(self, i: int, dtype: torch.dtype, device: torch.device) -> PackedStage:
+        """Stage i's parameters packed for `fused_amp_stage` in `dtype` on
+        `device` (`amp_stage.pack_stage`). With no gradient recorded, packed
+        once per weight version: again only when the dtype, the device or
+        the parameters' `weights_version` changes. Under autograd, packed
+        anew for each call: its `params` are then the ones the plain
+        version differentiates."""
+        cfg = self.config
+        nk = len(cfg.resblock_kernel_sizes)
+        blocks = self.resblocks[i * nk:(i + 1) * nk]
+        pack = lambda: pack_stage(  # noqa: E731
+            [blk.stage_params(dtype) for blk in blocks], tuple(cfg.resblock_kernel_sizes),
+            tuple(cfg.resblock_dilation_sizes[0]), dtype, device)
+        if torch.is_grad_enabled():
+            return pack()
+        key = (dtype, device, weights_version(p for blk in blocks for p in blk.parameters()))
+        if i not in self._fused or self._fused[i][0] != key:
+            self._fused[i] = (key, pack())
+        return self._fused[i][1]
+
+    def pack_stage_weights(self) -> None:
+        """Packs the kernels' weights of every stage that takes the "fused"
+        (K1) or "wide" (K6) route in a forward without autograd in the
+        module's dtype on its device, so that no packing waits for a first
+        forward (or falls inside a graph capture)."""
         nk = len(self.config.resblock_kernel_sizes)
         p = next(self.parameters())
         with torch.no_grad():
             for i in range(len(self.ups)):
                 # ALIGN frames: every stage's length meets TMA's alignment
-                if self.stage_route(i, p.dtype, p.device, wide_conv.ALIGN) == "wide":
+                route = self.stage_route(i, p.dtype, p.device, wide_conv.ALIGN)
+                if route == "fused":
+                    self.fused_params(i, p.dtype, p.device)
+                elif route == "wide":
                     for blk in self.resblocks[i * nk:(i + 1) * nk]:
                         blk.wide_weights()
 
@@ -265,9 +298,9 @@ class BigVGAN(nn.Module):
             with obs.stage(f"vocoder.stage{i}", x.device, C=ch, fused=route == "fused"):
                 blocks = self.resblocks[i * nk:(i + 1) * nk]
                 if route == "fused":
-                    sp = [blk.stage_params(x.dtype) for blk in blocks]
                     x = fused_amp_stage(
-                        up(x).transpose(1, 2), sp, tuple(cfg.resblock_kernel_sizes),
+                        up(x).transpose(1, 2), self.fused_params(i, x.dtype, x.device),
+                        tuple(cfg.resblock_kernel_sizes),
                         tuple(cfg.resblock_dilation_sizes[0]), fast=cfg.fast_snake,
                     ).transpose(1, 2)
                     continue

@@ -24,8 +24,12 @@ TPU kernel `audiolcm_tpu/nn/pallas_amp_stage.py:fused_amp_stage_cl_batched`.
     op shrinking its valid range, edges in global coordinates, and each
     route's rounding points) in torch, so the CPU tests hold the kernels'
     decomposition against the JAX package.
-  * `pack_stage_params_mma` / `pack_conv_mma` — the tensor-core kernel's
-    weights, bf16 pairs in mma fragment order.
+  * `pack_stage` — a stage's parameters packed once for the kernel of one
+    dtype (`PackedStage`; `pack_stage_params_mma` / `pack_conv_wgmma`: the
+    tensor-core kernel's weights in its shared-memory layout); every
+    wrapper takes a `PackedStage`, which its caller packs.
+  * `pick_tile_mma` — the tensor-core kernel's tile from (C, B, T) and the
+    SM count; `grid_mma` its grid.
 
 stage_params[b]["sub"][s] = {a1, b1, w1, c1b, a2, b2, w2, c2b}: snake
 alpha/beta already exponentiated (linear scale), conv weights in the torch
@@ -35,6 +39,7 @@ layout (C_out, C_in, k).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import List, Sequence
 
@@ -49,9 +54,11 @@ from audiolcm_torch.nn.snake import snake_binv
 R_ACT = 6  # receptive radius of the alias-free activation
 SMEM_BYTES = 232448  # H100: shared memory one block can use
 EO_GROUP = 8  # must match csrc/amp_stage.cu
-MMA_MAX_C = 64  # the tensor-core kernel's widest C (8 n8 tiles); csrc MMA_MAX_NT
-MMA_PAD_ROWS = 16  # csrc PAD_ROWS
-MAX_TILE = 512  # the longest tile either kernel runs (reached at narrow C)
+MMA_MAX_C = 64  # the tensor-core kernel's widest C (wgmma N <= 64); csrc MMA_MAX_NT
+MMA_SMEM_SLACK = 64  # csrc SMEM_SLACK
+MAX_TILE = 512  # the CUDA-core kernel's longest tile
+MAX_TILE_MMA = 1024  # the tensor-core kernel's longest tile (reached at narrow C)
+NUM_SMS = 132  # the H100's multiprocessors, when no card is asked
 ACCUM_MODES = ("bf16", "f32")
 CONV_MODES = ("tap", "mstack", "kstack")
 
@@ -81,54 +88,103 @@ def pick_tile(c: int, r: int) -> int:
     raise ValueError(f"fused AMP stage: C={c} does not fit shared memory at radius {r}")
 
 
-def mma_pitches(c: int, n: int) -> tuple:
-    """(NP, HP) of the tensor-core kernel for a window of n samples: the f32
-    residual's row pitch NP = n rounded up to 4 mod 8 floats, and the bf16
-    channels-last rows' pitch HP, C rounded up to an odd number of 8-channel
-    (16-byte) units."""
-    ng = -(-c // 8)
-    return n + (4 - n) % 8, 8 * (ng if ng % 2 else ng + 1)
+def mma_layout(c: int, n: int) -> tuple:
+    """(NP, HROWS) of the tensor-core kernel for a window of n samples: the
+    row pitch NP of the f32 residual and the bf16 first-conv output, n
+    rounded up to 4 mod 8, and the rows of each 8-channel plane of the conv
+    input H (16 bytes a row), n + 64 (a ragged 64-sample tile reads past the
+    window) rounded up to 1 mod 8."""
+    return n + (4 - n) % 8, n + 64 + (1 - (n + 64)) % 8
 
 
-def smem_bytes_mma(c: int, tile: int, r: int) -> int:
-    """The tensor-core kernel's shared memory: RES (C x NP) and ACC (C x
-    tile) f32, the (N, 8) f32 up-phases E and O, and H ((N + pad rows) x HP)
-    and G (N x HP) bf16."""
+def conv_groups(c: int, k: int) -> int:
+    """The 8-channel groups of one conv's K in the tensor-core kernel:
+    (input-channel group, tap) flattened, padded to an even count (two per
+    k16 step)."""
+    return -(-k * -(-c // 8) // 2) * 2
+
+
+def smem_bytes_mma(c: int, tile: int, r: int, kmax: int) -> int:
+    """The tensor-core kernel's shared memory: one conv's packed weights at
+    the stage's largest kernel size, the conv input H (ceil(C / 8) planes of
+    HROWS x 8 bf16), the residual (C x NP f32), the resblock sum (C x (tile
+    + 4) f32) and the first conv's output G (C x NP bf16), N = tile + 2r."""
     n = tile + 2 * r
-    np_, hp = mma_pitches(c, n)
-    return 4 * (c * np_ + c * tile + 2 * EO_GROUP * n) + 2 * hp * (2 * n + MMA_PAD_ROWS)
+    np_, hrows = mma_layout(c, n)
+    ng = -(-c // 8)
+    return (conv_groups(c, kmax) * ng * 128 + 16 * ng * hrows + 4 * c * (np_ + tile + 4)
+            + 2 * c * np_ + MMA_SMEM_SLACK)
 
 
-def pick_tile_mma(c: int, r: int) -> int:
-    """The tensor-core kernel's tile: the largest multiple of 16 (<=
-    MAX_TILE) whose footprint fits one block: 192 at C=48 and 512 at C=24
-    for r=96."""
+def max_tile_mma(c: int, r: int, kmax: int) -> int:
+    """The tensor-core kernel's longest tile that fits one block: the
+    largest multiple of 8 (<= MAX_TILE_MMA); 168 at C=48 and 616 at C=24
+    for the shipped stage (r = 96, k <= 11)."""
     if c > MMA_MAX_C:
         raise ValueError(f"fused AMP stage: the tensor-core kernel takes C <= {MMA_MAX_C}, "
                          f"got C={c}")
-    for tile in range(MAX_TILE, 15, -16):
-        if smem_bytes_mma(c, tile, r) <= SMEM_BYTES:
+    for tile in range(MAX_TILE_MMA, 7, -8):
+        if smem_bytes_mma(c, tile, r, kmax) <= SMEM_BYTES:
             return tile
     raise ValueError(f"fused AMP stage: C={c} does not fit shared memory at radius {r}")
+
+
+def pick_tile_mma(c: int, kernel_sizes: Sequence[int], dilations: Sequence[int], b: int, t: int,
+                  sms: int = NUM_SMS) -> int:
+    """The tensor-core kernel's tile for a (B, T, C) stage on a card of
+    `sms` multiprocessors: of the multiples of 8 up to `max_tile_mma`, the
+    one whose grid costs the least, in waves of one block per SM times the
+    tile + r samples each of its ops computes on average (the window, tile +
+    2r, shrinks to the tile); the longer on a tie. So a batch-1 grid fills
+    its last wave rather than leaving most SMs idle in it."""
+    return _pick_tile_mma(c, tuple(kernel_sizes), tuple(dilations), b, t, sms)
+
+
+@functools.lru_cache(maxsize=4096)
+def _pick_tile_mma(c: int, kernel_sizes: tuple, dilations: tuple, b: int, t: int,
+                   sms: int) -> int:
+    r = stage_radius(kernel_sizes, dilations)
+    top = max_tile_mma(c, r, max(kernel_sizes))
+
+    def cost(tile):
+        return -(-b * -(-t // tile) // sms) * (tile + r)
+
+    return min(range(top, 7, -8), key=lambda tile: (cost(tile), -tile))
+
+
+def grid_mma(b: int, t: int, tile: int) -> tuple:
+    """The tensor-core kernel's grid: (time tiles, batch); block (i, j)
+    computes samples [i tile, min((i + 1) tile, T)) of batch element j."""
+    return -(-t // tile), b
 
 
 def pick_route(x: torch.Tensor) -> str:
     """The kernel that a CUDA tensor of x's dtype launches: "mma" (the
     tensor-core kernel) for bf16, "cuda_core" for f32."""
-    return "mma" if x.dtype == torch.bfloat16 else "cuda_core"
+    return route_of(x.dtype)
 
 
-def route_tile(route: str, c: int, r: int) -> int:
-    return pick_tile_mma(c, r) if route == "mma" else pick_tile(c, r)
+def route_of(dtype: torch.dtype) -> str:
+    return "mma" if dtype == torch.bfloat16 else "cuda_core"
 
 
-def route_takes(dtype: torch.dtype, c: int, r: int) -> bool:
-    """Whether the kernel route of `dtype` has a tile for C at radius r
+def route_tile(route: str, c: int, kernel_sizes: Sequence[int], dilations: Sequence[int],
+               b: int, t: int, sms: int = NUM_SMS) -> int:
+    """The tile a (B, T, C) stage launches at on `route`'s kernel."""
+    if route == "mma":
+        return pick_tile_mma(c, kernel_sizes, dilations, b, t, sms)
+    return pick_tile(c, stage_radius(kernel_sizes, dilations))
+
+
+def route_takes(dtype: torch.dtype, c: int, kernel_sizes: Sequence[int],
+                dilations: Sequence[int]) -> bool:
+    """Whether the kernel route of `dtype` has a tile for C in this stage
     (bf16: the tensor-core kernel, f32: the CUDA-core kernel; no other
     dtype has a kernel). Never raises, and answers the same on any device,
     so a caller can decide before any launch which stages to fuse."""
+    r = stage_radius(kernel_sizes, dilations)
     if dtype == torch.bfloat16:
-        return c <= MMA_MAX_C and smem_bytes_mma(c, 16, r) <= SMEM_BYTES
+        return c <= MMA_MAX_C and smem_bytes_mma(c, 8, r, max(kernel_sizes)) <= SMEM_BYTES
     return dtype == torch.float32 and smem_bytes(c, 32, r) <= SMEM_BYTES
 
 
@@ -217,10 +273,12 @@ def stage_tiles_emulated(x: torch.Tensor, stage_params: List[dict],
     of tile + 2R samples per tile, every op over its shrinking valid range,
     edge rules applied in global coordinates (conv inputs zero outside
     [0, T); the activation's FIRs read their inputs clamped to the
-    first/last sample), the output rounded to x's dtype once.
+    first/last sample), the output rounded to x's dtype once. Every tile's
+    window is computed at once, as a batch of windows.
 
     The numerics are those of the kernel a CUDA tensor of x's dtype runs
-    (`pick_route`), and `tile` defaults to that route's tile. f32 is the
+    (`pick_route`), and `tile` defaults to that route's tile for x's shape
+    on an H100 (`route_tile`). f32 is the
     CUDA-core kernel: f32 inside. bf16 is the tensor-core kernel: each
     conv's input and weights rounded to bf16, f32 sums, the first conv's
     output (G) rounded to bf16, everything else (residual, resblock mean,
@@ -229,83 +287,80 @@ def stage_tiles_emulated(x: torch.Tensor, stage_params: List[dict],
     b, t, c = x.shape
     r = stage_radius(kernel_sizes, dilations)
     route = pick_route(x)
-    tile = tile or route_tile(route, c, r)
+    tile = tile or route_tile(route, c, kernel_sizes, dilations, b, t)
     n = tile + 2 * r
+    nt = -(-t // tile)
     rnd = (lambda v: v.bfloat16().float()) if route == "mma" else (lambda v: v)
-    xc = x.transpose(1, 2).float()
     sp = [{"sub": [{k: v.float() for k, v in s.items()} for s in blk["sub"]]}
           for blk in stage_params]
-    out = torch.empty_like(xc)
-    for t0 in range(0, t, tile):
-        base = t0 - r
-        g = torch.arange(base, base + n)
-        inside = (g >= 0) & (g < t)
+    # window w = (batch element, tile) covers global positions g[w] = base[w] + 0 .. n - 1
+    base = (torch.arange(nt) * tile - r).repeat(b)  # (b nt,)
+    g = base[:, None] + torch.arange(n)  # (b nt, n)
+    inside = (g >= 0) & (g < t)
 
-        def act(inp, lo, hi, alpha, beta):
-            # snaked up-phases over [lo-3, hi+3), clamped global reads
-            ge = g[lo - 3:hi + 3]
-
-            def up(taps, shift, pos):
-                idx = (pos[:, None] + torch.arange(6) - shift).clamp(0, t - 1) - base
-                return _corr_idx(inp, idx, taps)
-
-            a = alpha[:, None]
-            binv = (1.0 / (beta + 1e-9))[:, None]
-            snk = lambda u: snake_binv(u, a, binv, fast)
-            ae = snk(up(up_e, 3, ge.clamp(0, t - 1)))
-            ao = snk(up(up_o, 2, ge.clamp(0, t - 1)))
-            e, o = ae, ao
-            if ge[0] < 0:  # u[0] = ae[0]; the window holds position 0
-                left = snk(up(up_e, 3, torch.tensor([0])))
-                e, o = torch.where(ge < 0, left, e), torch.where(ge < 0, left, o)
-            if ge[-1] >= t:  # u[2T-1] = ao[T-1]; the window holds T-1
-                right = snk(up(up_o, 2, torch.tensor([t - 1])))
-                e, o = torch.where(ge >= t, right, e), torch.where(ge >= t, right, o)
-            y = correlate(o, dn_e, hi - lo, -1) + correlate(e[..., 1:], dn_o, hi - lo, -1)
-            res = torch.zeros_like(inp)
-            res[..., lo:hi] = torch.where(inside[lo:hi], y, 0.0)
-            return res
-
-        def conv(inp, lo, hi, w, bias, d):
-            half = (w.shape[-1] - 1) // 2 * d
-            res = torch.zeros_like(inp)
-            res[..., lo:hi] = F.conv1d(rnd(inp[..., lo - half:hi + half]), rnd(w), bias,
-                                       dilation=d)
-            return res
-
-        window = torch.zeros(b, c, n)
-        window[..., inside] = xc[..., g[inside]]
+    def gather(inp, pos, taps, shift):
+        """sum_d taps[d] * inp at global pos + d - shift clamped to [0, T), per
+        window (sequential sum over d); inp (W, C, n), pos (W, m)."""
+        m = pos.shape[1]
+        idx = (pos[:, :, None] + torch.arange(6) - shift).clamp(0, t - 1) - base[:, None, None]
+        idx = idx.clamp(0, n - 1).reshape(-1, 1, m * 6).expand(-1, c, -1)
+        vals = inp.gather(-1, idx).reshape(-1, c, m, 6)
         acc = None
-        for bi, k in enumerate(kernel_sizes):
-            rk = sum(subblock_radius(k, d) for d in dilations)
-            lo, hi = r - rk, n - (r - rk)
-            res = window.clone()
-            for si, d in enumerate(dilations):
-                p = sp[bi]["sub"][si]
-                h = act(res, lo + 6, hi - 6, p["a1"], p["b1"])
-                lo, hi = lo + 6, hi - 6
-                h1 = (k - 1) // 2 * d
-                h = rnd(conv(h, lo + h1, hi - h1, p["w1"], p["c1b"], d))
-                lo, hi = lo + h1, hi - h1
-                h = act(h, lo + 6, hi - 6, p["a2"], p["b2"])
-                lo, hi = lo + 6, hi - 6
-                h2 = (k - 1) // 2
-                res = res + conv(h, lo + h2, hi - h2, p["w2"], p["c2b"], 1)
-                lo, hi = lo + h2, hi - h2
-            centre = res[..., r:r + tile]
-            acc = centre if acc is None else acc + centre
-        end = min(t0 + tile, t)
-        out[..., t0:end] = (acc / len(kernel_sizes))[..., :end - t0]
-    return out.to(x.dtype).transpose(1, 2)
+        for d, w in enumerate(taps):
+            term = w * vals[..., d]
+            acc = term if acc is None else acc + term
+        return acc
 
+    def act(inp, lo, hi, alpha, beta):
+        # snaked up-phases over [lo-3, hi+3), clamped global reads
+        ge = g[:, lo - 3:hi + 3]
+        a = alpha[:, None]
+        binv = (1.0 / (beta + 1e-9))[:, None]
+        snk = lambda u: snake_binv(u, a, binv, fast)  # noqa: E731
+        e = snk(gather(inp, ge.clamp(0, t - 1), up_e, 3))
+        o = snk(gather(inp, ge.clamp(0, t - 1), up_o, 2))
+        # u[0] = ae[0] before the first sample, u[2T-1] = ao[T-1] past the last
+        # (each read only matters in the windows that hold that edge)
+        left = snk(gather(inp, torch.zeros_like(ge[:, :1]), up_e, 3))
+        right = snk(gather(inp, torch.full_like(ge[:, :1], t - 1), up_o, 2))
+        before, past = (ge < 0)[:, None], (ge >= t)[:, None]
+        e = torch.where(before, left, torch.where(past, right, e))
+        o = torch.where(before, left, torch.where(past, right, o))
+        y = correlate(o, dn_e, hi - lo, -1) + correlate(e[..., 1:], dn_o, hi - lo, -1)
+        res = torch.zeros_like(inp)
+        res[..., lo:hi] = torch.where(inside[:, None, lo:hi], y, 0.0)
+        return res
 
-def _corr_idx(inp: torch.Tensor, idx: torch.Tensor, taps) -> torch.Tensor:
-    """sum_d taps[d] * inp[..., idx[:, d]] (sequential sum over d)."""
+    def conv(inp, lo, hi, w, bias, d):
+        half = (w.shape[-1] - 1) // 2 * d
+        res = torch.zeros_like(inp)
+        res[..., lo:hi] = F.conv1d(rnd(inp[..., lo - half:hi + half]), rnd(w), bias, dilation=d)
+        return res
+
+    xc = x.transpose(1, 2).float()  # (b, c, t)
+    window = xc[:, :, g[:nt].clamp(0, t - 1)].transpose(1, 2)  # (b, nt, c, n)
+    window = torch.where(inside.view(b, nt, 1, n), window, 0.0).reshape(b * nt, c, n)
     acc = None
-    for d, w in enumerate(taps):
-        term = w * inp[..., idx[:, d]]
-        acc = term if acc is None else acc + term
-    return acc
+    for bi, k in enumerate(kernel_sizes):
+        rk = sum(subblock_radius(k, d) for d in dilations)
+        lo, hi = r - rk, n - (r - rk)
+        res = window.clone()
+        for si, d in enumerate(dilations):
+            p = sp[bi]["sub"][si]
+            h = act(res, lo + 6, hi - 6, p["a1"], p["b1"])
+            lo, hi = lo + 6, hi - 6
+            h1 = (k - 1) // 2 * d
+            h = rnd(conv(h, lo + h1, hi - h1, p["w1"], p["c1b"], d))
+            lo, hi = lo + h1, hi - h1
+            h = act(h, lo + 6, hi - 6, p["a2"], p["b2"])
+            lo, hi = lo + 6, hi - 6
+            h2 = (k - 1) // 2
+            res = res + conv(h, lo + h2, hi - h2, p["w2"], p["c2b"], 1)
+            lo, hi = lo + h2, hi - h2
+        centre = res[..., r:r + tile]
+        acc = centre if acc is None else acc + centre
+    out = (acc / len(kernel_sizes)).view(b, nt, c, tile).transpose(1, 2).reshape(b, c, nt * tile)
+    return out[..., :t].to(x.dtype).transpose(1, 2)
 
 
 # ---------------------------------------------------------------------------
@@ -360,58 +415,80 @@ def pack_stage_params(stage_params: List[dict], device) -> tuple:
     return torch.cat(ws).to(device), _pack_vectors(stage_params).to(device)
 
 
-def pack_conv_mma(w: torch.Tensor) -> torch.Tensor:
-    """(..., C_out, C_in, k) conv weights -> their B fragments for the
-    tensor-core kernel, int32 (..., steps, NT, 32, 2): bf16 pairs, the lower
-    index in the low half.
-
-    K runs over (tap j, 8-channel group cg, channel cc), group q = j*ng + cg
-    (ng = ceil(C_in/8)), two groups per k16 step (steps = ceil(k*ng/2)); N
-    over C_out in NT = ceil(C_out/8) n8 tiles; channels past C and the group
-    past k*ng are zero. Lane g*4 + t4 of step s, tile n holds
-    B[k = 16s + 8h + 2t4 + e][n = 8n + g] in register h, half e: the
-    m16n8k16 B fragment."""
+def pack_conv_wgmma(w: torch.Tensor) -> torch.Tensor:
+    """(..., C, C, k) conv weights (C_out, C_in, tap) -> the tensor-core
+    kernel's B, bf16 (..., groups, 8 ng, 8), ng = ceil(C / 8): K runs over
+    (input-channel group u, tap j), group q = u k + j, and group q is a
+    (C_out rounded up to 8) x 8 block, row n = output channel n, column e =
+    input channel 8u + e of tap j: the wgmma core matrices, 8 rows of 16
+    bytes, stored in order. groups = `conv_groups(C, k)`; channels past C
+    and the padded group are zero."""
     *lead, co, ci, k = w.shape
-    ng, nt = -(-ci // 8), -(-co // 8)
+    ng = -(-ci // 8)
     nq = k * ng
-    steps = -(-nq // 2)
-    wq = w.new_zeros((*lead, nt * 8, k, ng * 8), dtype=torch.bfloat16)
-    wq[..., :co, :, :ci] = w.transpose(-1, -2).to(torch.bfloat16)
-    b = w.new_zeros((*lead, nt * 8, 2 * steps, 8), dtype=torch.bfloat16)
-    b[..., :nq, :] = wq.reshape(*lead, nt * 8, nq, 8)
-    # (n, q, cc) = (tile, g, step, h, t4, e) -> (step, tile, g, t4, h, e)
-    f = b.reshape(*lead, nt, 8, steps, 2, 4, 2)
-    nl = len(lead)
-    f = f.permute(*range(nl), nl + 2, nl, nl + 1, nl + 4, nl + 3, nl + 5).contiguous()
-    return f.view(torch.int32).reshape(*lead, steps, nt, 32, 2)
+    wt = w.new_zeros((*lead, co, ng * 8, k), dtype=torch.bfloat16)
+    wt[..., :ci, :] = w.to(torch.bfloat16)
+    nl = len(lead)  # (..., co, u, e, j) -> (..., u, j, co, e)
+    wt = wt.reshape(*lead, co, ng, 8, k).permute(*range(nl), nl + 1, nl + 3, nl, nl + 2)
+    b = w.new_zeros((*lead, conv_groups(ci, k), -(-co // 8) * 8, 8), dtype=torch.bfloat16)
+    b[..., :nq, :co, :] = wt.reshape(*lead, nq, co, 8)
+    return b
 
 
 def pack_stage_params_mma(stage_params: List[dict], device) -> tuple:
-    """(B fragments of every conv in stage order [res][sub][conv1, conv2],
-    vectors) as the tensor-core kernel reads them, on `device`."""
-    frags = []
+    """(every conv's `pack_conv_wgmma` in stage order [res][sub][conv1,
+    conv2], flattened; vectors) as the tensor-core kernel reads them, on
+    `device`."""
+    packs = []
     for blk in stage_params:
         w = torch.stack([p[n] for p in blk["sub"] for n in ("w1", "w2")]).to(device)
-        frags.append(pack_conv_mma(w).reshape(-1))
-    return torch.cat(frags), _pack_vectors(stage_params).to(device)
+        packs.append(pack_conv_wgmma(w).reshape(-1))
+    return torch.cat(packs), _pack_vectors(stage_params).to(device)
 
 
-def _pack(stage_params: List[dict], route: str, device) -> tuple:
-    return (pack_stage_params_mma if route == "mma" else pack_stage_params)(stage_params, device)
+@dataclasses.dataclass(frozen=True)
+class PackedStage:
+    """A stage's parameters packed once for the kernel that a tensor of
+    `dtype` on `device` launches (`pack_stage`): `weights` and `vectors` as
+    that kernel reads them; `params`, the stage params themselves, for the
+    plain version off the card."""
+    params: List[dict]
+    dtype: torch.dtype
+    device: torch.device
+    weights: torch.Tensor
+    vectors: torch.Tensor
 
 
-def _launch_cf(xc: torch.Tensor, out: torch.Tensor, packed: tuple, kernel_sizes, dilations,
+def pack_stage(stage_params: List[dict], kernel_sizes: Sequence[int], dilations: Sequence[int],
+               dtype: torch.dtype, device) -> PackedStage:
+    """Packs stage_params for the kernel route of `dtype` (`route_of`) on
+    `device`, after checking their shapes. No gradient flows through the
+    packing: the kernels have no backward."""
+    c = stage_params[0]["sub"][0]["w1"].shape[0] if stage_params and stage_params[0]["sub"] else 0
+    check_stage_params(stage_params, kernel_sizes, dilations, c)
+    pack = pack_stage_params_mma if route_of(dtype) == "mma" else pack_stage_params
+    with torch.no_grad():
+        weights, vectors = pack(stage_params, device)
+    return PackedStage(stage_params, dtype, torch.device(device), weights, vectors)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _launch_cf(xc: torch.Tensor, out: torch.Tensor, packed: PackedStage, kernel_sizes, dilations,
                fast) -> None:
     """One kernel launch over channels-first contiguous xc (B, C, T) into
-    out, on `pick_route(xc)`'s kernel; packed = `_pack(..., route, ...)`.
-    K1, K2a and K2b all launch here: the recorder counts `amp_stage.mma` or
-    `amp_stage.f32` by route (`obs.count`)."""
+    out, on `pick_route(xc)`'s kernel at its tile for xc's shape on this
+    card. K1, K2a and K2b all launch here: the recorder counts
+    `amp_stage.mma` or `amp_stage.f32` by route (`obs.count`)."""
     if xc.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"fused AMP stage kernel takes float32 or bfloat16, not {xc.dtype}")
     b, c, t = xc.shape
     r = stage_radius(kernel_sizes, dilations)
     route = pick_route(xc)
-    w, vec = packed
+    tile = route_tile(route, c, kernel_sizes, dilations, b, t, _sms(xc.device.index or 0))
     ks = (ctypes.c_int * len(kernel_sizes))(*kernel_sizes)
     ds = (ctypes.c_int * len(dilations))(*dilations)
     taps = (ctypes.c_float * 24)(*[v for group in alias_free_taps() for v in group])
@@ -419,15 +496,16 @@ def _launch_cf(xc: torch.Tensor, out: torch.Tensor, packed: tuple, kernel_sizes,
     fn = lib.amp_stage_mma_launch if route == "mma" else lib.amp_stage_launch
     with torch.cuda.device(xc.device):
         stream = torch.cuda.current_stream(xc.device).cuda_stream
-        rc = fn(xc.data_ptr(), out.data_ptr(), w.data_ptr(), vec.data_ptr(), b, c, t,
-                route_tile(route, c, r), r, len(kernel_sizes), len(dilations), ks, ds, int(fast),
-                taps, stream)
+        rc = fn(xc.data_ptr(), out.data_ptr(), packed.weights.data_ptr(),
+                packed.vectors.data_ptr(), b, c, t, tile, r, len(kernel_sizes), len(dilations), ks,
+                ds, int(fast), taps, stream)
     if rc != 0:
         raise RuntimeError(f"amp_stage kernel launch failed ({route}): CUDA error {rc}")
     obs.count("amp_stage.mma" if route == "mma" else "amp_stage.f32")
 
 
-def _check_stage(x: torch.Tensor, stage_params, kernel_sizes, dilations, accum: str) -> None:
+def _check_stage(x: torch.Tensor, packed: PackedStage, kernel_sizes, dilations,
+                 accum: str) -> None:
     if accum not in ACCUM_MODES:
         raise ValueError(f"accum must be one of {ACCUM_MODES}, got {accum!r}")
     if x.dim() != 3:
@@ -436,14 +514,20 @@ def _check_stage(x: torch.Tensor, stage_params, kernel_sizes, dilations, accum: 
         raise ValueError(f"kernel sizes must be odd, got {tuple(kernel_sizes)}")
     if not (1 <= len(kernel_sizes) <= 4 and 1 <= len(dilations) <= 4):
         raise ValueError("the kernel takes 1-4 resblocks of 1-4 sub-units")
-    # raises if C is too wide for the route's kernel
-    route_tile(pick_route(x), x.shape[-1], stage_radius(kernel_sizes, dilations))
-    check_stage_params(stage_params, kernel_sizes, dilations, x.shape[-1])
+    b, t, c = x.shape
+    route_tile(pick_route(x), c, kernel_sizes, dilations, b, t)  # raises if C is too wide
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused AMP stage runs on cuda or cpu, not {x.device}")
+    if not isinstance(packed, PackedStage):
+        raise TypeError(f"the stage's parameters come packed (`pack_stage`), not as "
+                        f"{type(packed).__name__}")
+    if (packed.dtype, packed.device) != (x.dtype, x.device):
+        raise ValueError(f"the stage is packed for {packed.dtype} on {packed.device}, "
+                         f"x is {x.dtype} on {x.device}")
+    check_stage_params(packed.params, kernel_sizes, dilations, c)
 
 
-def fused_amp_stage(x: torch.Tensor, stage_params: List[dict],
+def fused_amp_stage(x: torch.Tensor, packed: PackedStage,
                     kernel_sizes: Sequence[int] = (3, 7, 11),
                     dilations: Sequence[int] = (1, 3, 5), fast: bool = False,
                     accum: str = "bf16", conv: str = "tap") -> torch.Tensor:
@@ -452,25 +536,26 @@ def fused_amp_stage(x: torch.Tensor, stage_params: List[dict],
 
     On a CUDA tensor this launches an sm_90a kernel once for the whole
     batch or raises (bf16: the tensor-core kernel; f32: the CUDA-core
-    kernel); on a CPU tensor it runs the plain version. `accum` and `conv`
-    are the JAX knobs, accepted and validated: both kernels sum in f32 and
-    keep the residual and the resblock mean in f32 (error at or below the
-    JAX "bf16" and "f32" modes; bf16 rounds only the conv operands, as the
-    TPU kernel does), and one formulation serves all three `conv` values,
-    which the JAX package measured to give the same numbers."""
+    kernel); on a CPU tensor it runs the plain version. `packed` is the
+    stage's parameters packed for x's dtype and device (`pack_stage`).
+    `accum` and `conv` are the JAX knobs, accepted and validated: both
+    kernels sum in f32 and keep the residual and the resblock mean in f32
+    (error at or below the JAX "bf16" and "f32" modes; bf16 rounds only the
+    conv operands, as the TPU kernel does), and one formulation serves all
+    three `conv` values, which the JAX package measured to give the same
+    numbers."""
     if conv not in CONV_MODES:
         raise ValueError(f"conv must be one of {CONV_MODES}, got {conv!r}")
-    _check_stage(x, stage_params, kernel_sizes, dilations, accum)
+    _check_stage(x, packed, kernel_sizes, dilations, accum)
     if x.device.type == "cpu":
-        return fused_amp_stage_plain(x, stage_params, kernel_sizes, dilations, fast)
+        return fused_amp_stage_plain(x, packed.params, kernel_sizes, dilations, fast)
     xc = x.transpose(1, 2).contiguous()
     out = torch.empty_like(xc)
-    _launch_cf(xc, out, _pack(stage_params, pick_route(xc), x.device), kernel_sizes, dilations,
-               fast)
+    _launch_cf(xc, out, packed, kernel_sizes, dilations, fast)
     return out.transpose(1, 2)
 
 
-def fused_amp_stage_tc(x: torch.Tensor, stage_params: List[dict],
+def fused_amp_stage_tc(x: torch.Tensor, packed: PackedStage,
                        kernel_sizes: Sequence[int] = (3, 7, 11),
                        dilations: Sequence[int] = (1, 3, 5), fast: bool = False,
                        accum: str = "bf16") -> torch.Tensor:
@@ -479,10 +564,10 @@ def fused_amp_stage_tc(x: torch.Tensor, stage_params: List[dict],
     element, each on that element's own (T, C) -> (C, T) transpose. The
     JAX `reference_fn` and `tile` are not taken: the kernel computes the
     edges itself and masks a ragged last tile. CPU: the plain version."""
-    _check_stage(x, stage_params, kernel_sizes, dilations, accum)
+    _check_stage(x, packed, kernel_sizes, dilations, accum)
     if x.device.type == "cpu":
-        return fused_amp_stage_plain(x, stage_params, kernel_sizes, dilations, fast)
-    packed, outs = _pack(stage_params, pick_route(x), x.device), []
+        return fused_amp_stage_plain(x, packed.params, kernel_sizes, dilations, fast)
+    outs = []
     for i in range(x.shape[0]):
         xc = x[i:i + 1].transpose(1, 2).contiguous()
         out = torch.empty_like(xc)
@@ -491,7 +576,7 @@ def fused_amp_stage_tc(x: torch.Tensor, stage_params: List[dict],
     return torch.cat(outs)
 
 
-def fused_amp_stage_cl(x: torch.Tensor, stage_params: List[dict],
+def fused_amp_stage_cl(x: torch.Tensor, packed: PackedStage,
                        kernel_sizes: Sequence[int] = (3, 7, 11),
                        dilations: Sequence[int] = (1, 3, 5), fast: bool = False,
                        accum: str = "bf16", conv: str = "tap") -> torch.Tensor:
@@ -501,12 +586,11 @@ def fused_amp_stage_cl(x: torch.Tensor, stage_params: List[dict],
     is refused, as the JAX function refuses it. CPU: the plain version."""
     if conv not in ("tap", "mstack"):
         raise ValueError(f"fused_amp_stage_cl takes conv 'tap' or 'mstack', got {conv!r}")
-    _check_stage(x, stage_params, kernel_sizes, dilations, accum)
+    _check_stage(x, packed, kernel_sizes, dilations, accum)
     if x.device.type == "cpu":
-        return fused_amp_stage_plain(x, stage_params, kernel_sizes, dilations, fast)
+        return fused_amp_stage_plain(x, packed.params, kernel_sizes, dilations, fast)
     xc = x.transpose(1, 2).contiguous()
     out = torch.empty_like(xc)
-    packed = _pack(stage_params, pick_route(x), x.device)
     for i in range(x.shape[0]):
         _launch_cf(xc[i:i + 1], out[i:i + 1], packed, kernel_sizes, dilations, fast)
     return out.transpose(1, 2)

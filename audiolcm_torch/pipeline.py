@@ -122,8 +122,8 @@ class AudioLCMPipeline:
                 self.scale_factor = float(params.scale_factor)
             for _, m in modules.items():
                 m.to(device=self.device, dtype=compute_dtype).eval().requires_grad_(False)
-            if self.device.type == "cuda" and compute_dtype == torch.bfloat16:
-                modules.vocoder.pack_wide_conv()  # K6's weights, before any graph capture
+            if self.device.type == "cuda":
+                modules.vocoder.pack_stage_weights()  # K1's and K6's, before any graph capture
             self.schedule = schedule if schedule is not None else NoiseSchedule.linear()
             self.lcm_config = lcm_config
             self.default_latent_len = default_latent_len

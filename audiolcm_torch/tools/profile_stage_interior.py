@@ -28,7 +28,7 @@ batch 8, bf16, fast snake:
      and conv + overhead what K1 would keep.
 
 Each kernel runs at its own tile: K1's route's tile (bf16: the
-tensor-core kernel's `pick_tile_mma`) at the variant's own stage radius (a
+tensor-core kernel's `pick_tile_mma`) for the variant's own stage (a
 subset has a smaller halo and may take a wider tile), K4's
 `act_chain.pick_tile`. Times are CUDA events around `--iters` launches
 after one warm-up. Any failure raises.
@@ -46,7 +46,7 @@ import torch
 
 from audiolcm_torch.nn.act_chain import act_chain, act_chain_tiles_emulated
 from audiolcm_torch.nn.act_chain import pick_tile as act_tile
-from audiolcm_torch.nn.amp_stage import fused_amp_stage, pick_route, route_tile, stage_radius
+from audiolcm_torch.nn.amp_stage import fused_amp_stage, pack_stage, pick_route, route_tile
 
 KS, DS = (3, 7, 11), (1, 3, 5)
 N_ACTS = 2 * len(KS) * len(DS)  # 2 acts per sub-unit x 3 dilations x 3 resblocks
@@ -103,8 +103,8 @@ def variants(x: torch.Tensor, sp: List[dict]) -> Dict[str, tuple]:
     beta = torch.full((c,), BETA, device=x.device)
 
     def stage(ks, ds, fast, accum):
-        p = subset(sp, ks, ds)
-        return (route_tile(pick_route(x), c, stage_radius(ks, ds)),
+        p = pack_stage(subset(sp, ks, ds), ks, ds, x.dtype, x.device)
+        return (route_tile(pick_route(x), c, ks, ds, x.shape[0], x.shape[1]),
                 lambda: fused_amp_stage(x, p, ks, ds, fast=fast, accum=accum))
 
     def act(n):
@@ -186,7 +186,8 @@ def cpu_smoke() -> float:
     c, t, tile, b = 24, 512, 256, 1
     x = torch.randn(b, t, c, generator=torch.Generator().manual_seed(1)).bfloat16()
     sp = make_stage_params(c, "cpu")
-    y = fused_amp_stage(x, subset(sp, (3,), (1,)), (3,), (1,), fast=True)
+    y = fused_amp_stage(x, pack_stage(subset(sp, (3,), (1,)), (3,), (1,), x.dtype, x.device),
+                        (3,), (1,), fast=True)
     print("stage smoke ok:", tuple(y.shape))
     alpha, beta = torch.full((c,), ALPHA).bfloat16(), torch.full((c,), BETA)
     y = act_chain(x, alpha, beta, 2)

@@ -8,12 +8,15 @@ Phases, one JSON line each; any failure raises and exits non-zero:
   1. card     — device name and count, nvidia-smi name and power limit
   2. build    — every csrc/*.cu compiled with nvcc for sm_90a, one nvcc per
                 source, all started together (ptxas stats, K4's registers,
-                spills and shared memory; the HMMA count of each kernel's
-                SASS: > 0 in every bf16 tensor-core kernel of K1 and K3, 0
-                in K1's f32 CUDA-core kernel)
+                spills and shared memory, K1's registers and spills; the
+                tensor-core instructions in each kernel's SASS: HMMA > 0 in
+                every bf16 kernel of K3, HGMMA > 0 in every bf16 kernel of
+                K1 and K6, none of either in K1's f32 CUDA-core kernel)
   3. check    — each kernel against its plain PyTorch version on the card at
                 the main paths' shapes (f32 with TF32 off, and bf16): the AMP
-                stage K1, K1 at each stage variant of the profiler, its
+                stage K1 (at batch 2 and at each shape the time phase
+                times, each at its own tile, also at a ragged T at batch 8
+                and 1), K1 at each stage variant of the profiler, its
                 per-item forms K2a/K2b (f32 on K1's CUDA-core kernel, bf16 on
                 its tensor-core kernel, counted in `amp_stage.mma`; bf16 held
                 over the whole output, its edges and its last tile), flash
@@ -24,8 +27,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                 latter counted in `flash_attention.cross`), the activation
                 chain K4 (n_rep 1, 2, 6, MAX_NREP)
   4. time     — each kernel, its plain version, the bound and (K3, also
-                at both Flag teacher shapes) the library call, bf16 (K1 also its device time in the profiler
-                and, for information, its 18 convs alone through cuDNN); the
+                at both Flag teacher shapes) the library call, bf16 (K1 at
+                batch 8 and at batch 1 of a 20 s clip, also its device time
+                in the profiler, its activations' CUDA-core floor and, for
+                information, its 18 convs alone through cuDNN); the
                 alias-free activation at every stage width of a batch-8 10 s
                 and a batch-1 20 s generate (`act_forms`): the depthwise-conv
                 and polyphase forms, and K5 beside its bounds, with its f32
@@ -264,10 +269,11 @@ def ptxas_kernels(log: str) -> dict:
 
 def build_phase() -> dict:
     """Build every source; ptxas' per-kernel lines; the HMMA (tensor-core
-    mma) count in the SASS of each flash-attention and AMP-stage kernel:
-    > 0 for every bf16 tensor-core instantiation (K3's tc_kernel, K1's
-    mma_kernel), 0 for K1's f32 CUDA-core one; the HGMMA (warpgroup mma)
-    count of each K6 tile: > 0."""
+    mma) count in the SASS of each flash-attention kernel: > 0 for every
+    bf16 tensor-core instantiation (K3's tc_kernel); the HGMMA (warpgroup
+    mma) count of each AMP-stage kernel, > 0 in every bf16 instantiation
+    (K1's mma_kernel), and 0 tensor-core instructions of either kind in
+    K1's f32 CUDA-core one; the HGMMA count of each K6 tile: > 0."""
     from audiolcm_torch.build import build_all, sass_op_counts
 
     t0 = time.time()
@@ -277,21 +283,24 @@ def build_phase() -> dict:
     stats = {k: [ln.strip() for ln in v.splitlines() if any(w in ln for w in keys)]
              for k, v in logs.items()}
     hmma = sass_op_counts("flash_attention", "HMMA")
-    amp = sass_op_counts("amp_stage", "HMMA")
+    amp = sass_op_counts("amp_stage", "HGMMA")
+    amp_hmma = sass_op_counts("amp_stage", "HMMA")
     from audiolcm_torch.nn import act_chain as K
 
     row = {"seconds": seconds, "ptxas": stats, "flash_attention_sass_hmma": hmma,
-           "amp_stage_sass_hmma": amp, "act_chain_ptxas": ptxas_kernels(logs["act_chain"]),
+           "amp_stage_sass_hgmma": amp, "amp_stage_sass_hmma": amp_hmma,
+           "amp_stage_ptxas": ptxas_kernels(logs["amp_stage"]),
+           "act_chain_ptxas": ptxas_kernels(logs["act_chain"]),
            "act_chain_dynamic_smem_bytes": K.smem_bytes(K.pick_tile(2), 2)}
     row["wide_conv_sass_hgmma"] = hgmma = sass_op_counts("wide_conv", "HGMMA")
     tc = [n for fn, n in hmma.items() if "tc_kernel" in fn]
     mma = [n for fn, n in amp.items() if "mma_kernel" in fn]
-    cuda_core = [n for fn, n in amp.items() if "mma_kernel" not in fn]
+    cuda_core = [amp[fn] + amp_hmma[fn] for fn in amp if "mma_kernel" not in fn]
     if (not tc or min(tc) == 0 or not mma or min(mma) == 0 or not cuda_core or any(cuda_core)
             or len(hgmma) != 4 or min(hgmma.values()) == 0):
         emit({"phase": "build", **row})
-        raise AssertionError(f"HMMA in SASS: flash_attention {hmma}, amp_stage {amp}; "
-                             f"HGMMA in wide_conv {hgmma}")
+        raise AssertionError(f"HMMA in SASS: flash_attention {hmma}; HGMMA in amp_stage {amp} "
+                             f"(HMMA {amp_hmma}); HGMMA in wide_conv {hgmma}")
     return row
 
 
@@ -312,12 +321,14 @@ def route_row(x: torch.Tensor, ks, ds, n0: tuple, n1: tuple, n2: tuple, on_card:
     `amp_stage.mma`; the CPU launches nothing."""
     from audiolcm_torch.nn import amp_stage as A
 
-    r = A.stage_radius(ks, ds)
     c = x.shape[-1]
     f32_step = [b - a for a, b in zip(n0, n1)]
     bf16_step = [b - a for a, b in zip(n1, n2)]
-    row = {"f32_route": A.pick_route(x), "f32_tile": A.route_tile("cuda_core", c, r),
-           "bf16_route": A.pick_route(x.bfloat16()), "bf16_tile": A.route_tile("mma", c, r),
+    b, t = x.shape[:2]
+    sms = A._sms(x.device.index or 0) if on_card else A.NUM_SMS
+    row = {"f32_route": A.pick_route(x), "f32_tile": A.route_tile("cuda_core", c, ks, ds, b, t),
+           "bf16_route": A.pick_route(x.bfloat16()),
+           "bf16_tile": A.route_tile("mma", c, ks, ds, b, t, sms),
            "launches_f32_call": f32_step, "launches_bf16_call": bf16_step}
     n = per_call if on_card else 0
     return row, f32_step == [n, 0] and bf16_step == [0, n]
@@ -339,37 +350,49 @@ def regions_hold(regions: dict) -> bool:
     return all(k <= p * 1.02 for k, p in regions.values())
 
 
-def check_phase(device, shapes, rehearsal: bool) -> list:
-    """K1 against its plain version: f32 on the CUDA-core kernel (whole,
-    first and last 256 samples) and bf16 on the tensor-core kernel (mean
-    error vs the f32 plain result, at most 1.02x the plain bf16 path's, over
-    the whole output and over each of `bf16_regions`), with each call's
-    route, tile and launch counts."""
+def stage_kernel(rehearsal: bool, ks=KS, ds=DS):
+    """K1 as the vocoder calls it, f(x, stage params, fast): the stage's
+    parameters packed for x's kernel (`pack_stage`), then one launch; in a
+    CPU rehearsal the kernel's algorithm in torch (`stage_tiles_emulated`)."""
     from audiolcm_torch.nn import amp_stage as A
 
-    kernel = A.stage_tiles_emulated if rehearsal else A.fused_amp_stage
+    if rehearsal:
+        return lambda x, sp, fast: A.stage_tiles_emulated(x, sp, ks, ds, fast)
+    return lambda x, sp, fast: A.fused_amp_stage(
+        x, A.pack_stage(sp, ks, ds, x.dtype, x.device), ks, ds, fast=fast)
+
+
+def check_phase(device, cases, rehearsal: bool) -> list:
+    """K1 against its plain version at each (batch, C, T): f32 on the
+    CUDA-core kernel (whole, first and last 256 samples) and bf16 on the
+    tensor-core kernel (mean error vs the f32 plain result, at most 1.02x
+    the plain bf16 path's, over the whole output and over each of
+    `bf16_regions`), with each call's route, tile and launch counts."""
+    from audiolcm_torch.nn import amp_stage as A
+
+    kernel = stage_kernel(rehearsal)
     results = []
-    for c, t in shapes:
+    for batch, c, t in cases:
         sp = stage_params(c, seed=c, device=device)
-        x = torch.randn(2, c, t, generator=torch.Generator(device).manual_seed(t),
+        x = torch.randn(batch, c, t, generator=torch.Generator(device).manual_seed(t),
                         device=device).transpose(1, 2)
         for fast in (False, True):
             plain = A.fused_amp_stage_plain(x, sp, KS, DS, fast)
             n0 = amp_counts()
-            out = kernel(x, sp, KS, DS, fast=fast)
+            out = kernel(x, sp, fast)
             sync(device)
             n1 = amp_counts()
             err = (out - plain).abs()
             edge = max(err[:, :256].max().item(), err[:, -256:].max().item())
             spb, xb = cast(sp, torch.bfloat16), x.bfloat16()
-            kb = kernel(xb, spb, KS, DS, fast=fast).float()
+            kb = kernel(xb, spb, fast).float()
             sync(device)
             n2 = amp_counts()
             pb = A.fused_amp_stage_plain(xb, spb, KS, DS, fast).float()
             kerr, perr = (kb - plain).abs().mean().item(), (pb - plain).abs().mean().item()
             routes, counted = route_row(x, KS, DS, n0, n1, n2, not rehearsal)
             regions = bf16_regions(kb, pb, plain, routes["bf16_tile"])
-            row = {"C": c, "T": t, "fast": fast, "f32_max_abs_err": err.max().item(),
+            row = {"C": c, "T": t, "batch": batch, "fast": fast, "f32_max_abs_err": err.max().item(),
                    "f32_edge_max_abs_err": edge, "f32_tol": F32_TOL,
                    "bf16_mean_err": kerr, "plain_bf16_mean_err": perr,
                    "bf16_region_mean_err": regions,
@@ -403,7 +426,8 @@ def check_variants_phase(device, shapes, rehearsal: bool) -> list:
         for key, (ks, ds, fast, accum) in STAGE_VARIANTS.items():
             p = subset(sp, ks, ds)
             kernel = (lambda xi, pi: A.stage_tiles_emulated(xi, pi, ks, ds, fast) if rehearsal
-                      else A.fused_amp_stage(xi, pi, ks, ds, fast=fast, accum=accum))
+                      else A.fused_amp_stage(xi, A.pack_stage(pi, ks, ds, xi.dtype, xi.device),
+                                             ks, ds, fast=fast, accum=accum))
             plain = A.fused_amp_stage_plain(x, p, ks, ds, fast)
             n0 = amp_counts()
             err = (kernel(x, p) - plain).abs()
@@ -457,34 +481,42 @@ def kernel_device_ms(run, name: str, calls: int) -> float:
     return sum(us(e) for e in prof.key_averages() if name in e.key) / 1e3 / calls
 
 
-def time_phase(device, shapes, card: dict) -> dict:
-    """Batch 8, bf16, fast=True: kernel vs plain (CUDA events) and the
-    bound; the route and tile; the kernel's device time in the profiler
-    (so ms - device_ms is the wrapper's cost per call: validation, weight
-    packing, launch); for information the stage's 18 convs alone through
-    cuDNN (convs_cudnn_ms; library_ms stays null: no PyTorch call computes
-    the stage)."""
+def time_phase(device, cases, card: dict) -> dict:
+    """K1 at the serving shapes, (batch, C, T): batch 8 of 10 s clips and
+    batch 1 of a 20 s clip, bf16, fast=True, the stage's weights packed
+    once (`pack_stage`), as the vocoder hands them. Kernel vs plain (CUDA
+    events) and the bound; the activations' CUDA-core floor (18 alias-free
+    activations at ACT_FLOP per sample over the f32 rate: a second bound,
+    which the tensor cores cannot lower); the route and tile; the kernel's
+    device time in the profiler (so ms - device_ms is the wrapper's cost per
+    call: validation and launch); for information the stage's 18 convs
+    alone through cuDNN (convs_cudnn_ms; library_ms stays null: no PyTorch
+    call computes the stage)."""
     from audiolcm_torch.nn import amp_stage as A
 
     out = {}
-    for c, t in shapes:
+    for batch, c, t in cases:
         sp = cast(stage_params(c, seed=c, device=device), torch.bfloat16)
-        x = torch.randn(8, c, t, device=device, dtype=torch.bfloat16).transpose(1, 2)
-        run = lambda: A.fused_amp_stage(x, sp, KS, DS, fast=True)
+        packed = A.pack_stage(sp, KS, DS, torch.bfloat16, device)
+        x = torch.randn(batch, c, t, device=device, dtype=torch.bfloat16).transpose(1, 2)
+        run = lambda: A.fused_amp_stage(x, packed, KS, DS, fast=True)
         k_ms = event_ms(run, iters=10)
         p_ms = event_ms(lambda: A.fused_amp_stage_plain(x, sp, KS, DS, True), iters=3)
         xc = x.transpose(1, 2).contiguous()
         with torch.inference_mode():
             conv_ms = event_ms(lambda: stage_convs(xc, sp), iters=5)
-        bound, by = stage_bound_ms(8, t, c, 2)
+        bound, by = stage_bound_ms(batch, t, c, 2)
         route = A.pick_route(x)
-        row = {"C": c, "T": t, "batch": 8, "route": route,
-               "tile": A.route_tile(route, c, A.stage_radius(KS, DS)), "ms": k_ms,
-               "device_ms": kernel_device_ms(run, "amp_stage", 5), "plain_ms": p_ms,
-               "bound_ms": bound, "bound_by": by, "library_ms": None,
-               "convs_cudnn_ms": conv_ms, "card": card["nvidia_smi"]}
+        row = {"C": c, "T": t, "batch": batch, "route": route,
+               "tile": A.route_tile(route, c, KS, DS, batch, t, A._sms(device.index or 0)),
+               "ms": k_ms, "device_ms": kernel_device_ms(run, "amp_stage", 5), "plain_ms": p_ms,
+               "bound_ms": bound, "bound_by": by,
+               "act_f32_bound_ms": act_f32_bound_ms(batch, c, t, 2 * len(KS) * len(DS)),
+               "library_ms": None, "convs_cudnn_ms": conv_ms, "card": card["nvidia_smi"]}
+        row.update(bound_share=bound / row["device_ms"],
+                   act_f32_bound_share=row["act_f32_bound_ms"] / row["device_ms"])
         emit({"phase": "time", "kernel": "amp_stage", **row})
-        out[(c, t)] = row
+        out[(batch, c, t)] = row
     return out
 
 
@@ -659,9 +691,10 @@ def check_k2_phase(device, shapes, rehearsal: bool) -> list:
         for name, fn in (("amp_stage_tc", A.fused_amp_stage_tc),
                          ("amp_stage_cl", A.fused_amp_stage_cl)):
             n0 = amp_counts()
-            err = (fn(x, sp, KS, DS, fast=True) - plain).abs().max().item()
+            err = (fn(x, A.pack_stage(sp, KS, DS, x.dtype, device), KS, DS, fast=True)
+                   - plain).abs().max().item()
             n1 = amp_counts()
-            kb = fn(xb, spb, KS, DS, fast=True).float()
+            kb = fn(xb, A.pack_stage(spb, KS, DS, xb.dtype, device), KS, DS, fast=True).float()
             kerr = (kb - plain).abs().mean().item()
             sync(device)
             routes, counted = route_row(x, KS, DS, n0, n1, amp_counts(), not rehearsal,
@@ -740,16 +773,18 @@ def check_flash_phase(device, cases) -> list:
 
 
 def time_k2_phase(device, shapes, card: dict) -> dict:
-    """K2a and K2b at batch 8, bf16, fast snake (8 launches per call)."""
+    """K2a and K2b at batch 8, bf16, fast snake (8 launches per call), the
+    stage's weights packed once (`pack_stage`)."""
     from audiolcm_torch.nn import amp_stage as A
 
     out = {}
     for c, t in shapes:
         sp = cast(stage_params(c, seed=c, device=device), torch.bfloat16)
         x = torch.randn(8, c, t, device=device, dtype=torch.bfloat16).transpose(1, 2)
+        packed = A.pack_stage(sp, KS, DS, torch.bfloat16, device)
         for name, fn in (("amp_stage_tc", A.fused_amp_stage_tc),
                          ("amp_stage_cl", A.fused_amp_stage_cl)):
-            ms = event_ms(lambda: fn(x, sp, KS, DS, fast=True), iters=3)
+            ms = event_ms(lambda: fn(x, packed, KS, DS, fast=True), iters=3)
             emit({"phase": "time", "kernel": name, "C": c, "T": t, "batch": 8, "ms": ms,
                   "card": card["nvidia_smi"]})
             out[(name, c, t)] = ms
@@ -3877,18 +3912,20 @@ def kernels_line(checks, k2_checks, flash_checks, times, k2_times, flash_time, g
     against cuDNN's same convs as its library_ms)."""
     measured = bool(times)
     nm = "not measured"
-    stage_shapes = sorted({(r["C"], r["T"]) for r in times.values()}, reverse=True)
-    k1_sum = lambda key: sum(times[s][key] for s in stage_shapes) if measured else nm
+    b8 = sorted((s for s in times if s[0] == 8), reverse=True)  # (batch, C, T)
+    k1_sum = lambda key: sum(times[s][key] for s in b8) if measured else nm
     widest = max(times.values(), key=lambda r: r["bound_ms"]) if measured else {}
     ratio = lambda rows: max(r["bf16_mean_err"] / r["plain_bf16_mean_err"] for r in rows)
     region_ratio = lambda rows: max(k / p for r in rows for k, p in r["bf16_region_mean_err"].values())
     common = {"route": "cuda", "source": "audiolcm_torch/csrc/amp_stage.cu",
-              "units": "bf16: tensor cores (amp_stage_mma_kernel, mma.sync m16n8k16 bf16, "
-                       "f32 sums); f32: CUDA cores (amp_stage_kernel)",
+              "units": "bf16: tensor cores (amp_stage_mma_kernel, wgmma m64nNk16 bf16, "
+                       "f32 sums) and CUDA cores (its activations); f32: CUDA cores "
+                       "(amp_stage_kernel)",
               "plain_ms": k1_sum("plain_ms"), "bound_ms": k1_sum("bound_ms"),
+              "act_f32_bound_ms": k1_sum("act_f32_bound_ms"),
               "bound_by": widest.get("bound_by", nm), "library_ms": None,
               "library_note": "no single PyTorch call computes a fused AMP stage",
-              "sass_hmma": build_row.get("amp_stage_sass_hmma", nm)}
+              "sass_hgmma": build_row.get("amp_stage_sass_hgmma", nm)}
     out = [{"name": "amp_stage",
             "replaces": "audiolcm_tpu/nn/pallas_amp_stage.py:665 fused_amp_stage_cl_batched",
             "launches": gen_row["launches"]["amp_stage.mma"]
@@ -3897,8 +3934,8 @@ def kernels_line(checks, k2_checks, flash_checks, times, k2_times, flash_time, g
             "max_abs_err": max(r["f32_max_abs_err"] for r in checks),
             "bf16_mean_err_ratio_max": ratio(checks),
             "bf16_region_err_ratio_max": region_ratio(checks),
-            "ms": k1_sum("ms"), **common,
-            "per_shape": [times[s] for s in stage_shapes]}]
+            "ms": k1_sum("ms"), "device_ms": k1_sum("device_ms"), **common,
+            "per_shape": list(times.values())}]
     for name, site in (("amp_stage_tc", "audiolcm_tpu/nn/pallas_amp_stage.py:477 fused_amp_stage"),
                        ("amp_stage_cl",
                         "audiolcm_tpu/nn/pallas_amp_stage.py:566 fused_amp_stage_cl")):
@@ -3909,7 +3946,7 @@ def kernels_line(checks, k2_checks, flash_checks, times, k2_times, flash_time, g
                                                       if r["kernel"] == name]),
                     "bf16_region_err_ratio_max": region_ratio([r for r in k2_checks
                                                                if r["kernel"] == name]),
-                    "ms": sum(k2_times[(name, *s)] for s in stage_shapes) if measured else nm,
+                    "ms": sum(k2_times[(name, *s[1:])] for s in b8) if measured else nm,
                     **common})
     hmma = build_row.get("flash_attention_sass_hmma")
     out.append({"name": "flash_attention", "route": "cuda",
@@ -4002,7 +4039,14 @@ def main(argv=None) -> int:
         emit({"phase": "build", **build_row})
     mark("card+build")
     shapes = [(48, 79872), (24, 159744), (48, 79872 - 77)] if not rehearsal else [(6, 700)]
-    checks = check_phase(device, shapes, rehearsal)
+    # K1 at batch 2 and at every shape time_phase times (batch 8 of 10 s
+    # clips, batch 1 of a 20 s clip), each at its own tile, and batch 8 and 1
+    # at a T that is no multiple of the tile
+    time_cases = [(8, 48, 79872), (8, 24, 159744), (1, 48, 159744), (1, 24, 319488)]
+    check_cases = ([(2, c, t) for c, t in shapes] + time_cases
+                   + [(8, 48, 79872 - 77), (1, 24, 319488 - 77)]
+                   if not rehearsal else [(2, 6, 700), (8, 6, 700), (1, 6, 1400 - 77)])
+    checks = check_phase(device, check_cases, rehearsal)
     checks += check_variants_phase(device, shapes, rehearsal)
     k2_checks = check_k2_phase(device, shapes[:2], rehearsal)
     # the teacher's DiT attention (CFG batch 16, T = 467), the longest DiT
@@ -4025,7 +4069,7 @@ def main(argv=None) -> int:
     times, k2_times, flash_time, act_times, act_forms, wide_forms = {}, {}, {}, [], [], []
     flag_flash_times = []
     if not rehearsal:
-        times = time_phase(device, shapes[:2], card)
+        times = time_phase(device, time_cases, card)
         k2_times = time_k2_phase(device, shapes[:2], card)
         flash_time = time_flash_phase(device, (16, 8, 467, 72), card)
         flag_flash_times = [time_flash_phase(device, FLAG_SELF[0], card),

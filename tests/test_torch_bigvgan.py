@@ -90,20 +90,77 @@ def test_bigvgan_knob_above_route_widths_matches_jax(vocoder_case, knob96_golden
 
 
 def test_route_takes_answers_without_raising():
-    r = amp_stage.stage_radius((3, 7, 11), (1, 3, 5))
-    assert r == 96
-    assert not amp_stage.route_takes(torch.bfloat16, 96, r)
-    assert amp_stage.route_takes(torch.bfloat16, 48, r)
-    assert amp_stage.route_takes(torch.bfloat16, amp_stage.MMA_MAX_C, r)
-    assert amp_stage.route_takes(torch.float32, 48, r)
-    assert not amp_stage.route_takes(torch.float32, 96, r)
-    assert not amp_stage.route_takes(torch.float16, 24, r)  # no kernel takes f16
+    ks, ds = (3, 7, 11), (1, 3, 5)
+    assert amp_stage.stage_radius(ks, ds) == 96
+    assert not amp_stage.route_takes(torch.bfloat16, 96, ks, ds)
+    assert amp_stage.route_takes(torch.bfloat16, 48, ks, ds)
+    assert amp_stage.route_takes(torch.bfloat16, amp_stage.MMA_MAX_C, ks, ds)
+    assert amp_stage.route_takes(torch.float32, 48, ks, ds)
+    assert not amp_stage.route_takes(torch.float32, 96, ks, ds)
+    assert not amp_stage.route_takes(torch.float16, 24, ks, ds)  # no kernel takes f16
     # the query agrees with the tile pickers wherever they find a tile
     for c in range(1, 100):
         for dtype, route in ((torch.bfloat16, "mma"), (torch.float32, "cuda_core")):
             try:
-                amp_stage.route_tile(route, c, r)
+                amp_stage.route_tile(route, c, ks, ds, 8, 79872)
                 fits = True
             except ValueError:
                 fits = False
-            assert amp_stage.route_takes(dtype, c, r) == fits, (c, dtype)
+            assert amp_stage.route_takes(dtype, c, ks, ds) == fits, (c, dtype)
+
+
+def test_fused_stage_packed_once_per_weight_version(monkeypatch):
+    """K1's packed stage parameters (`BigVGAN.fused_params`) follow the
+    weights as K6's do: `pack_stage_weights` packs the fused stages (C = 48
+    and 24 at knob 48); a forward after it packs nothing; an in-place weight
+    update (a checkpoint load) packs that stage again, and only it; a dtype
+    change packs anew; inference tensors keep no version and are packed by
+    storage; a forward under autograd packs each fused stage anew (the
+    plain version differentiates the packing's params) and leaves the
+    packings kept for forwards without autograd. The packed tensors are
+    those of the current weights, for the kernel of the module's dtype."""
+    from audiolcm_torch.models import bigvgan as tb
+
+    packs = []
+    real = tb.pack_stage
+
+    def logged(sp, ks, ds, dtype, device):
+        packs.append((sp[0]["sub"][0]["w1"].shape[0], dtype))
+        return real(sp, ks, ds, dtype, device)
+
+    monkeypatch.setattr(tb, "pack_stage", logged)
+    torch.manual_seed(0)
+    voc = TorchBigVGAN(TConfig(), pallas_stage_max_channels=48)
+    mel = torch.randn(1, 4, 80) * 0.3
+    f32, bf16, cpu = torch.float32, torch.bfloat16, torch.device("cpu")
+    voc.pack_stage_weights()
+    assert packs == [(48, f32), (24, f32)]
+    with torch.no_grad():
+        voc(mel)
+        first = voc.fused_params(5, f32, cpu)
+        assert voc.fused_params(5, f32, cpu) is first
+    assert packs == [(48, f32), (24, f32)]  # nothing packed inside the forward
+    blocks = voc.resblocks[15:18]  # stage 5, C = 24
+    with torch.no_grad():
+        blocks[1].convs2[0].weight.mul_(2.0)
+        voc(mel)
+        again = voc.fused_params(5, f32, cpu)
+    assert packs == [(48, f32), (24, f32), (24, f32)] and again is not first
+    want = amp_stage.pack_stage_params([b.stage_params(f32) for b in blocks], cpu)
+    assert torch.equal(again.weights, want[0]) and torch.equal(again.vectors, want[1])
+    voc(mel)  # autograd on
+    assert packs[3:] == [(48, f32), (24, f32)]
+    with torch.no_grad():
+        assert voc.fused_params(5, f32, cpu) is again
+    voc = voc.to(bf16)
+    voc.pack_stage_weights()
+    assert packs[5:] == [(48, bf16), (24, bf16)]
+    with torch.no_grad():
+        packed = voc.fused_params(5, bf16, cpu)
+    want = amp_stage.pack_stage_params_mma([b.stage_params(bf16) for b in voc.resblocks[15:18]],
+                                           cpu)
+    assert torch.equal(packed.weights, want[0]) and torch.equal(packed.vectors, want[1])
+    with torch.inference_mode():  # inference tensors keep no version: packed by storage
+        voc = voc.to(f32)
+        assert voc.fused_params(4, f32, cpu) is voc.fused_params(4, f32, cpu)
+    assert len(packs) == 8

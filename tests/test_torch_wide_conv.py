@@ -238,7 +238,7 @@ def test_resblock_2_and_autograd_keep_the_torch_convs(k6_on_the_cpu):
 
 def test_packed_weights_follow_the_weights(k6_on_the_cpu):
     """`wide_weights` packs once per weight version and again after an
-    in-place update (a checkpoint load); `pack_wide_conv` packs the blocks
+    in-place update (a checkpoint load); `pack_stage_weights` packs the blocks
     of the stages that take the "wide" route only."""
     torch.manual_seed(0)
     voc = BigVGAN(BigVGANConfig(), pallas_stage_max_channels=48)
@@ -251,7 +251,7 @@ def test_packed_weights_follow_the_weights(k6_on_the_cpu):
     again = blk.wide_weights()
     assert again is not first and torch.equal(again[5], W.pack_weight(blk.convs2[2].weight))
     voc.resblocks[0]._wide = None
-    voc.pack_wide_conv()
+    voc.pack_stage_weights()
     assert all((blk._wide is not None) == (i < 12) for i, blk in enumerate(voc.resblocks))
     with torch.inference_mode():  # inference tensors keep no version: packed by storage
         voc = voc.to(torch.bfloat16)
@@ -288,7 +288,7 @@ def test_stage_route_reads_each_observable(meta_is_the_card, c, dtype, device, g
                                           knob, resblock, route):
     """`BigVGAN.stage_route` for one stage of the shipped widths, one
     observable changed per row against the first (the route the stage loop,
-    `pack_wide_conv`, the stage spans and the launch predictions take)."""
+    `pack_stage_weights`, the stage spans and the launch predictions take)."""
     with torch.device("meta"):  # no weights: the route reads the config and the shapes
         voc = BigVGAN(BigVGANConfig(resblock=resblock), pallas_stage_max_channels=knob)
     i = (768, 384, 192, 96, 48, 24).index(c)
