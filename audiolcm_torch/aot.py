@@ -26,20 +26,26 @@ import torch
 from audiolcm_torch import obs
 
 
-def graph_key(clap_ids, t5_ids, latent_len: int) -> tuple:
+def graph_key(clap_ids, t5_ids, latent_len: int, llm_ids=None) -> tuple:
     """The registry key of the JAX package (`pipeline.generate_jit`): both
     id shapes, both id dtypes (named as numpy and JAX name them, 'int64')
-    and the latent length."""
+    and the latent length; with the caption LLM's ids, their shape and
+    dtype after those."""
     clap_ids, t5_ids = torch.as_tensor(clap_ids), torch.as_tensor(t5_ids)
     name = lambda dt: str(dt).removeprefix("torch.")
-    return (tuple(clap_ids.shape), tuple(t5_ids.shape), name(clap_ids.dtype),
-            name(t5_ids.dtype), int(latent_len))
+    key = (tuple(clap_ids.shape), tuple(t5_ids.shape), name(clap_ids.dtype),
+           name(t5_ids.dtype), int(latent_len))
+    if llm_ids is None:
+        return key
+    llm_ids = torch.as_tensor(llm_ids)
+    return key + (tuple(llm_ids.shape), name(llm_ids.dtype))
 
 
 class CapturedGenerate:
     """One (batch, latent_len) generate of `pipeline` captured as a CUDA graph.
 
-    The graph reads static device buffers: the two id tensors, x_T and the
+    The graph reads static device buffers: the two id tensors (three with
+    the caption LLM's, `llm_len` of them per clip), x_T and the
     re-noising draws of every LCM step but the last, and writes the static
     wav and mel. `replay` copies the caller's ids into the buffers (a host
     copy, outside the graph), draws x_T and the per-step noise from the
@@ -63,7 +69,10 @@ class CapturedGenerate:
     tokenizers return.
     """
 
-    def __init__(self, pipeline, batch: int, latent_len: int, tok_len: int = 77, pool=None):
+    llm_ids = None  # the caption LLM's id buffer, where the pipeline has that tower
+
+    def __init__(self, pipeline, batch: int, latent_len: int, tok_len: int = 77, pool=None,
+                 llm_len: Optional[int] = None):
         dev = pipeline.device
         if dev.type != "cuda":
             raise ValueError("a CUDA graph needs a CUDA device; this pipeline runs on "
@@ -72,6 +81,8 @@ class CapturedGenerate:
             self.pipeline, self.latent_len = pipeline, latent_len
             self.clap_ids = torch.zeros((batch, tok_len), dtype=torch.int64, device=dev)
             self.t5_ids = torch.zeros((batch, tok_len), dtype=torch.int64, device=dev)
+            self.llm_ids = None if llm_len is None else torch.zeros(
+                (batch, llm_len), dtype=torch.int64, device=dev)
             self.shape = (batch, latent_len, pipeline.modules.dit.in_channels)
             n_noise = max(pipeline.lcm_config.num_inference_steps - 1, 0)
             self.x_T = torch.zeros(self.shape, device=dev)
@@ -90,20 +101,24 @@ class CapturedGenerate:
 
     @property
     def key(self) -> tuple:
-        return graph_key(self.clap_ids, self.t5_ids, self.latent_len)
+        return graph_key(self.clap_ids, self.t5_ids, self.latent_len, self.llm_ids)
 
     @torch.inference_mode()
     def _run(self):
         """The eager generate on the buffers, outside any request."""
         p = self.pipeline
+        llm = None if self.llm_ids is None else p.encode_llm_ids(self.llm_ids)
         return p.generate_from_context(p.encode_text_ids(self.clap_ids, self.t5_ids),
-                                       self.latent_len, x_T=self.x_T, noise=self.noise)
+                                       self.latent_len, x_T=self.x_T, noise=self.noise,
+                                       llm_context=llm)
 
-    def replay(self, clap_ids, t5_ids, generator: Optional[torch.Generator]):
+    def replay(self, clap_ids, t5_ids, generator: Optional[torch.Generator], llm_ids=None):
         """-> (wav, mel) of these ids, both f32 clones of the graph's outputs."""
         dev = self.pipeline.device
         self.clap_ids.copy_(torch.as_tensor(clap_ids))
         self.t5_ids.copy_(torch.as_tensor(t5_ids))
+        if self.llm_ids is not None:
+            self.llm_ids.copy_(torch.as_tensor(llm_ids))
         self.x_T.copy_(torch.randn(self.shape, generator=generator, device=dev))
         for i in range(self.noise.shape[0]):
             self.noise[i].copy_(torch.randn(self.shape, generator=generator, device=dev))

@@ -127,11 +127,14 @@ def serving_points(batch_sizes: Sequence[int] = (8,),
 
 
 def prewarm_buckets(pipeline: AudioLCMPipeline, batch_sizes: Sequence[int] = (8,),
-                    mel_buckets: Optional[Sequence[int]] = None, tok_len: int = 77) -> dict:
+                    mel_buckets: Optional[Sequence[int]] = None, tok_len: int = 77,
+                    llm_len: Optional[int] = None) -> dict:
     """Capture the generate once per (batch, mel bucket) serving point as a
     CUDA graph (`aot.CapturedGenerate`) and register it on the pipeline,
     whose `generate` then replays it for int64 ids of shape (batch, tok_len)
-    at that latent length (the port's tokenizers return int64 ids).
+    at that latent length (the port's tokenizers return int64 ids); with
+    the caption LLM (`PipelineModules.llm`), for its ids of shape (batch,
+    llm_len), which a pipeline with that tower requires.
 
     The counterpart of the JAX package's AOT executables. Graphs do not
     persist across processes: a new process captures again (seconds per
@@ -151,11 +154,14 @@ def prewarm_buckets(pipeline: AudioLCMPipeline, batch_sizes: Sequence[int] = (8,
     if pipeline.device.type != "cuda":
         raise ValueError("prewarm_buckets captures CUDA graphs and needs a CUDA pipeline; "
                          f"this one runs on {pipeline.device}")
+    if (llm_len is None) != (pipeline.modules.llm is None):
+        raise ValueError("llm_len is given exactly when the pipeline has a caption LLM")
     if pipeline._graph_pool is None:
         pipeline._graph_pool = torch.cuda.graph_pool_handle()
     points = serving_points(batch_sizes, mel_buckets)
     for b, latent in sorted(points, key=lambda p: p[0] * p[1], reverse=True):
-        graph = CapturedGenerate(pipeline, b, latent, tok_len, pool=pipeline._graph_pool)
+        graph = CapturedGenerate(pipeline, b, latent, tok_len, pool=pipeline._graph_pool,
+                                 llm_len=llm_len)
         pipeline._graphs[graph.key] = graph
     return {p: "captured" for p in points}
 

@@ -53,6 +53,7 @@ from audiolcm_torch import obs
 from audiolcm_torch.nn import wide_conv
 from audiolcm_torch.nn.alias_free_act import alias_free_act
 from audiolcm_torch.nn.amp_stage import PackedStage, fused_amp_stage, pack_stage, route_takes
+from audiolcm_torch.nn.packing import weights_version
 from audiolcm_torch.nn.resample import alias_free_activation_cf
 from audiolcm_torch.nn.resample_cf import alias_free_snake_cf
 from audiolcm_torch.nn.snake import Snake, SnakeBeta
@@ -89,15 +90,6 @@ def ConvTranspose1dTorchParity(cin: int, cout: int, kernel_size: int, stride: in
 
 def _same_conv(c: int, k: int, d: int = 1) -> nn.Conv1d:
     return nn.Conv1d(c, c, k, dilation=d, padding=(k * d - d) // 2)
-
-
-def weights_version(tensors) -> tuple:
-    """What a kernel's packing of `tensors` follows: each one's storage,
-    dtype and version (a module made inside `torch.inference_mode()` holds
-    inference tensors, which keep no version: their key follows the
-    storage). K1's and K6's packings are redone when it changes."""
-    return tuple((t.data_ptr(), t.dtype, None if t.is_inference() else t._version)
-                 for t in tensors)
 
 
 class Activation1d(nn.Module):

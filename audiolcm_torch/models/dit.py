@@ -158,27 +158,38 @@ class _ConcatBackbone(nn.Module):
 
 
 class ConcatDiT2MLP(_ConcatBackbone):
-    """Dual condition embedders over the CLAP/T5 halves of the context.
+    """Dual condition embedders over the CLAP/T5 halves of the context, and
+    with `llm_context_dim` a third over a caption LLM's hidden states
+    (`models/moe_llm.py`), whose tokens follow the T5 half's in the prefix.
 
     Shipped config: in_channels=20, context_dim=1024, hidden_size=576,
-    num_heads=8, depth=4, max_len=1000."""
+    num_heads=8, depth=4, max_len=1000, no third embedder."""
 
     def __init__(self, in_channels: int = 20, context_dim: int = 1024, hidden_size: int = 576,
                  depth: int = 4, num_heads: int = 8, max_len: int = 1000,
                  use_flash: bool = False, fuse_qkv: bool = False,
-                 out_channels: Optional[int] = None):
+                 out_channels: Optional[int] = None, llm_context_dim: Optional[int] = None):
         super().__init__(in_channels, context_dim, hidden_size, depth, num_heads, max_len,
                          out_channels or in_channels, use_flash, fuse_qkv)
         self.fuse_qkv = fuse_qkv
         self.c1_embedder = ConditionEmbedder(context_dim, hidden_size)
         self.c2_embedder = ConditionEmbedder(context_dim, hidden_size)
+        if llm_context_dim is not None:
+            self.c3_embedder = ConditionEmbedder(llm_context_dim, hidden_size)
 
     def forward(self, x: torch.Tensor, t: torch.Tensor, context: torch.Tensor,
-                w_cond: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """x (B, T, in_ch), t (B,), context (B, 2*Lc, context_dim) -> eps (B, T, out_ch)."""
+                w_cond: Optional[torch.Tensor] = None,
+                llm_context: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x (B, T, in_ch), t (B,), context (B, 2*Lc, context_dim), llm_context
+        (B, L, llm_context_dim) with the third embedder -> eps (B, T, out_ch)."""
+        if (llm_context is None) == hasattr(self, "c3_embedder"):
+            raise ValueError("llm_context is given exactly when the DiT has a third embedder "
+                             "(llm_context_dim)")
         c1, c2 = context.chunk(2, dim=1)
-        cond = torch.cat([self.c1_embedder(c1), self.c2_embedder(c2)], dim=1)
-        return self.backbone(x, t, w_cond, cond)
+        cond = [self.c1_embedder(c1), self.c2_embedder(c2)]
+        if llm_context is not None:
+            cond.append(self.c3_embedder(llm_context))
+        return self.backbone(x, t, w_cond, torch.cat(cond, dim=1))
 
 
 class ConcatDiT(_ConcatBackbone):

@@ -14,8 +14,9 @@ that counts what it drops. The names:
 - `request` (attribute `kind`: `replay`, `eager` or `teacher`): the root of
   each `AudioLCMPipeline.generate` / `generate_teacher` call, with the
   launch counts of that call (`counts`);
-- `text`, `dit`, `vae`, `vocoder`, `vocoder.stage<i>` (attributes `C` and
-  `fused`): the generate's stages (`stage`). Inside a request, or a graph
+- `text`, `llm` (the optional caption LLM, after `text`), `dit`, `vae`,
+  `vocoder`, `vocoder.stage<i>` (attributes `C` and `fused`): the
+  generate's stages (`stage`). Inside a request, or a graph
   capture, on a CUDA device a stage also takes its device time
   (`device_ms`) from two stamps of the card's nanosecond timer, written by
   a one-thread kernel (`csrc/stamp.cu`) on the current stream into a ring
@@ -35,7 +36,8 @@ that counts what it drops. The names:
 
 Counters (`count`), keyed by kernel and route: `amp_stage.mma`,
 `amp_stage.f32`, `flash_attention.tc`, `flash_attention.f32`, `act_chain`,
-`alias_free_act`, `wide_conv`; and `flash_attention.cross`, which counts again each K3
+`alias_free_act`, `wide_conv`, `moe_experts` (K7, four per expert layer);
+and `flash_attention.cross`, which counts again each K3
 launch whose keys number other than its queries (the Flag DiT's caption
 branch). A launch made while a graph captures (`capture()`) goes
 to the graph's `Tally`, which `launch()` adds to the totals once per

@@ -2,6 +2,8 @@
 
     clap_ids (B,77), t5_ids (B,77)
       -> BERT+projection (B,77,1024) | T5 (B,77,1024)  -> (B,154,1024) context
+      [llm_ids (B,L) -> a caption LLM's final states (B,L,d_llm), with the
+       optional third tower (models/moe_llm.py) and the DiT's third embedder]
       -> S LCM steps of the denoiser (ConcatDiT2MLP; any registry denoiser)
          (or, on the teacher path, 100 DDIM/PLMS steps with batch-doubled CFG)
       -> latent / scale_factor -> VAE decode -> mel (B,T,80)
@@ -30,6 +32,7 @@ from audiolcm_torch.diffusion.plms import plms_sample
 from audiolcm_torch.diffusion.schedule import NoiseSchedule
 from audiolcm_torch.models.bigvgan import BigVGAN
 from audiolcm_torch.models.clap_text import ClapTextEncoder, fuse_bert_state_dict
+from audiolcm_torch.models.moe_llm import MoELLM
 from audiolcm_torch.models.t5_encoder import T5Encoder, fuse_t5_state_dict
 from audiolcm_torch.models.vae1d import AutoencoderKL1D
 from audiolcm_torch.nn.attention import fuse_qkv_state_dict
@@ -49,13 +52,16 @@ def resolve_device(device=None) -> torch.device:
 class PipelineModules:
     """Model definitions; weights arrive through PipelineParams. `dit` is any
     denoiser of the registry (`config.REGISTRY`), served in the
-    ConcatDiT2MLP call signature (x, t, context, w_cond)."""
+    ConcatDiT2MLP call signature (x, t, context, w_cond). `llm`, the
+    optional caption LLM, is best built on the meta device: `load_params`
+    assigns its weights without a copy."""
 
     dit: nn.Module
     vae: AutoencoderKL1D
     vocoder: BigVGAN
     clap_text: Optional[ClapTextEncoder] = None
     t5: Optional[T5Encoder] = None
+    llm: Optional[MoELLM] = None
 
     def items(self):
         return [(f.name, getattr(self, f.name)) for f in dataclasses.fields(self)
@@ -72,6 +78,7 @@ class PipelineParams:
     clap_text: Optional[dict] = None
     t5: Optional[dict] = None
     scale_factor: float = 1.0
+    llm: Optional[dict] = None
 
 
 def cast_params(params: PipelineParams, dtype) -> PipelineParams:
@@ -80,7 +87,7 @@ def cast_params(params: PipelineParams, dtype) -> PipelineParams:
         k: v.to(dtype) if torch.is_floating_point(v) else v for k, v in sd.items()}
     return dataclasses.replace(params, dit=cast(params.dit), vae=cast(params.vae),
                                vocoder=cast(params.vocoder), clap_text=cast(params.clap_text),
-                               t5=cast(params.t5))
+                               t5=cast(params.t5), llm=cast(params.llm))
 
 
 def load_params(modules: PipelineModules, params: PipelineParams) -> None:
@@ -102,6 +109,8 @@ def load_params(modules: PipelineModules, params: PipelineParams) -> None:
         if "shared.weight" not in sd:
             sd["shared.weight"] = sd["encoder.embed_tokens.weight"]
         assign_state_dict(modules.t5, fuse_t5_state_dict(sd) if modules.t5.fuse_proj else sd)
+    if modules.llm is not None:  # the tensors themselves, HF's key names
+        modules.llm.load_state_dict(params.llm, strict=True, assign=True)
 
 
 class AudioLCMPipeline:
@@ -124,6 +133,8 @@ class AudioLCMPipeline:
                 m.to(device=self.device, dtype=compute_dtype).eval().requires_grad_(False)
             if self.device.type == "cuda":
                 modules.vocoder.pack_stage_weights()  # K1's and K6's, before any graph capture
+                if modules.llm is not None:
+                    modules.llm.pack_expert_weights()  # K7's
             self.schedule = schedule if schedule is not None else NoiseSchedule.linear()
             self.lcm_config = lcm_config
             self.default_latent_len = default_latent_len
@@ -141,12 +152,19 @@ class AudioLCMPipeline:
             z2 = self.modules.t5(to(t5_ids))
             return torch.cat([z1, z2], dim=1)
 
+    def encode_llm_ids(self, llm_ids) -> torch.Tensor:
+        """Token ids (B, L) -> the caption LLM's final states (B, L, d_llm)."""
+        with obs.stage("llm", self.device):
+            return self.modules.llm(torch.as_tensor(llm_ids, device=self.device).long())
+
     def sample_latent(self, context: torch.Tensor, latent_len: int, generator=None,
-                      x_T=None, noise=None) -> torch.Tensor:
+                      x_T=None, noise=None, llm_context=None) -> torch.Tensor:
         dit = self.modules.dit
         shape = (context.shape[0], latent_len, dit.in_channels)
+        denoise = ((lambda x, t, w: dit(x, t, context, w)) if llm_context is None else
+                   (lambda x, t, w: dit(x, t, context, w, llm_context)))
         with obs.stage("dit", self.device):
-            return lcm_sample(lambda x, t, w: dit(x, t, context, w), self.schedule, shape,
+            return lcm_sample(denoise, self.schedule, shape,
                               self.lcm_config, x_T=x_T, noise=noise, generator=generator,
                               dtype=self.compute_dtype, device=self.device)
 
@@ -171,11 +189,14 @@ class AudioLCMPipeline:
     def generate_from_context(self, context: torch.Tensor, latent_len: Optional[int] = None,
                               generator: Optional[torch.Generator] = None,
                               x_T: Optional[torch.Tensor] = None,
-                              noise: Optional[torch.Tensor] = None):
-        """-> (wav (B, 256*2*latent_len) f32, mel (B, 2*latent_len, 80) f32)."""
+                              noise: Optional[torch.Tensor] = None,
+                              llm_context: Optional[torch.Tensor] = None):
+        """-> (wav (B, 256*2*latent_len) f32, mel (B, 2*latent_len, 80) f32).
+        `llm_context`: the caption LLM's states, for a DiT with a third
+        embedder."""
         latent_len = latent_len or self.default_latent_len
         z = self.sample_latent(context.to(self.device), latent_len,
-                               self._generator(generator, x_T, noise), x_T, noise)
+                               self._generator(generator, x_T, noise), x_T, noise, llm_context)
         mel = self.decode_latent(z)
         wav = self.vocode(mel)
         return wav.float(), mel.float()
@@ -183,23 +204,29 @@ class AudioLCMPipeline:
     @torch.inference_mode()
     def generate(self, clap_ids, t5_ids, latent_len: Optional[int] = None,
                  generator: Optional[torch.Generator] = None,
-                 x_T: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None):
+                 x_T: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
+                 llm_ids=None):
         """Token ids -> (wav, mel). Noise is drawn from `generator` (a
         torch.Generator on the pipeline's device; seed 0 when None) unless
-        x_T and the per-step noise are given. When `api.prewarm_buckets`
-        captured a graph for these id shapes and dtypes and this latent
-        length, and no draw is given, the graph replays: it draws from the
-        generator in this path's order and returns the same waveform. Each
-        call is one `request` of the recorder (`obs`)."""
+        x_T and the per-step noise are given. `llm_ids` (B, L), the caption
+        LLM's ids, go with a pipeline that has the third tower. When
+        `api.prewarm_buckets` captured a graph for these id shapes and
+        dtypes and this latent length, and no draw is given, the graph
+        replays: it draws from the generator in this path's order and
+        returns the same waveform. Each call is one `request` of the
+        recorder (`obs`)."""
         latent_len = latent_len or self.default_latent_len
+        if (llm_ids is None) != (self.modules.llm is None):
+            raise ValueError("llm_ids are given exactly when the pipeline has a caption LLM")
         if x_T is None and noise is None:
-            graph = self._graphs.get(graph_key(clap_ids, t5_ids, latent_len))
+            graph = self._graphs.get(graph_key(clap_ids, t5_ids, latent_len, llm_ids))
             if graph is not None:
                 with obs.request("replay"):
-                    return graph.replay(clap_ids, t5_ids, self._generator(generator))
+                    return graph.replay(clap_ids, t5_ids, self._generator(generator), llm_ids)
         with obs.request("eager"):
             context = self.encode_text_ids(clap_ids, t5_ids)
-            return self.generate_from_context(context, latent_len, generator, x_T, noise)
+            llm = None if llm_ids is None else self.encode_llm_ids(llm_ids)
+            return self.generate_from_context(context, latent_len, generator, x_T, noise, llm)
 
     def sample_latent_teacher(self, context: torch.Tensor, uncond: torch.Tensor,
                               latent_len: int, num_steps: int = 100,

@@ -37,7 +37,14 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                 and bf16 errors against its plain version; K6 at the same
                 stages (`wide_conv_forms`): a stage's 18 resblock convs with
                 their sums against cuDNN's, its bound, its bf16 error
-                against cuDNN's bf16 route
+                against cuDNN's bf16 route; K7 (`moe_kernel`): the routed
+                experts at Moonlight-16B-A3B's widths (64 experts of 2048
+                -> 1408, top 6), 128 and 1024 tokens, routed evenly and as
+                unevenly as the cell moonlight_lcm_b1_10s routes (the
+                busiest expert 74 of 128 tokens), bf16 against the plain
+                per-expert loop (mean error against the f32 walk <= 1.02x
+                the plain loop's, 4 launches a call), ms, device ms, the
+                bound from the inputs and the plain loop's ms
   5. generate — the LCM serving pipeline at full width (random weights from
                 a seed): batch 1 f32 with the fused stage against the
                 unfused vocoder (before the final tanh); then the batch-8
@@ -125,6 +132,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                 weights and draws: the VAE GAN, the vocoder GAN on a tone,
                 teacher + LCM distillation, every metric at TRAIN_RTOL;
                 0 K1 / K3 / K4 launches
+ 17. moonlight_generate — the batch-1 10 s LCM generate with
+                Moonlight-16B-A3B as its third caption tower at full width,
+                captured, the launch counts of one replay and of one eager
+                generate (K7 104, K1 2, K5 73, K6 72), the replay against
+                the eager waveform, ms, peak GB
 then the seconds of each phase, the kernels line and, last, the device
 line.
 """
@@ -967,7 +979,7 @@ def build_modules(device, full: bool, fast_snake: bool = True):
 
 # the recorder's launch counters (audiolcm_torch.obs), by kernel and route
 COUNTERS = ("amp_stage.mma", "amp_stage.f32", "flash_attention.tc", "flash_attention.f32",
-            "flash_attention.cross", "act_chain", "alias_free_act", "wide_conv")
+            "flash_attention.cross", "act_chain", "alias_free_act", "wide_conv", "moe_experts")
 _counts_base: dict = {}
 _k5_due = 0  # K5 launches owed by the eager vocoder forwards since reset_counts()
 _k6_due = 0  # K6 launches owed by them
@@ -3897,6 +3909,233 @@ def _tensors(sd) -> list:
     return []
 
 
+# K7 at Moonlight-16B-A3B's widths: experts, top-k, hidden, expert width
+MOE_WIDTHS = (64, 6, 2048, 1408)
+MOE_TINY = (8, 2, 32, 16)  # the rehearsal's
+MOE_SCALE = 2.446  # Moonlight's routed_scaling_factor
+# the cell's uneven routing: per-expert offsets N(0, 1) x MOE_SKEW on uniform
+# scores; at 128 tokens the busiest expert gets 74 rows, 17 of 64 get none
+# (the benchmark's random tower: 76 rows, some none, in its first expert layer)
+MOE_SKEW, MOE_SEED = 0.15, 0
+
+
+def moe_routing(tokens: int, e: int, k: int, skew: float, seed: int) -> tuple:
+    """(idx (T, k) int64, w (T, k) f32) on the CPU from the seed: the top k
+    of uniform scores plus skew x a per-expert normal offset (skew 0: every
+    expert about T k / e rows); the weights positive, normalised and scaled
+    as the router's."""
+    g = torch.Generator().manual_seed(seed)
+    offset = torch.randn(e, generator=g)
+    idx = (torch.rand(tokens, e, generator=g) + skew * offset).topk(k, dim=-1)[1]
+    w = torch.rand(tokens, k, generator=g) + 0.5
+    return idx, w / w.sum(-1, keepdim=True) * MOE_SCALE
+
+
+def moe_bound_ms(idx: torch.Tensor, e: int, d: int, inter: int) -> tuple:
+    """K7's least time for one call: the weights of the experts that get a
+    row and the tokens' input, residual, shared output and output (bf16)
+    over the HBM rate, against the routed products over the bf16 peak."""
+    tokens, k = idx.shape
+    active = int((torch.bincount(idx.flatten().cpu(), minlength=e) > 0).sum())
+    t_bytes = 2 * (active * 3 * d * inter + 4 * tokens * d) / HBM
+    t_ops = 2 * tokens * k * 3 * d * inter / PEAK_BF16
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations", active
+
+
+def moe_kernel_phase(device, rehearsal: bool, card: dict) -> list:
+    """K7 (nn/moe_experts.py) against the plain per-expert loop at
+    Moonlight's widths (64 experts of 2048 -> 1408, top 6), 128 tokens (the
+    cell's request) and 1024, each under even routing and under the cell's
+    uneven routing (MOE_SKEW): bf16, its mean error against the f32 walk of
+    its algorithm at most 1.02x the plain bf16 loop's; the on-card dispatch
+    equal to `dispatch`; 4 launches a call (`moe_experts`); ms by CUDA
+    events, K7's device ms (every k7_ kernel) in the profiler, the bound
+    from the inputs (`moe_bound_ms`), the plain loop's ms. The rehearsal
+    holds the walk against the plain loop in f32 at tiny widths."""
+    from audiolcm_torch import obs
+    from audiolcm_torch.nn import moe_experts as M
+
+    e, k, d, inter = MOE_TINY if rehearsal else MOE_WIDTHS
+    rows = []
+    for tokens in ((9, 40) if rehearsal else (128, 1024)):
+        for skew in (0.0, MOE_SKEW):
+            idx, w = moe_routing(tokens, e, k, skew, MOE_SEED)
+            idx, w = idx.to(device), w.to(device)
+            g = torch.Generator(device).manual_seed(tokens)
+            x, res, shared = (torch.randn(tokens, d, generator=g, device=device)
+                              for _ in range(3))
+            stacked = tuple((torch.randn(e, n, kk, generator=g, device=device) * kk ** -0.5)
+                            for n, kk in ((inter, d), (inter, d), (d, inter)))
+            counts = torch.bincount(idx.flatten().cpu(), minlength=e)
+            row = {"tokens": tokens, "experts": e, "top_k": k, "hidden": d, "width": inter,
+                   "skew": skew, "rows_max": int(counts.max()), "rows_min": int(counts.min())}
+            with torch.inference_mode():
+                if rehearsal:
+                    walk = M.routed_experts_walk(x, idx, w, stacked, res, shared)
+                    plain32 = res + shared + M.routed_experts_plain(x, idx, w,
+                                                                    list(zip(*stacked)))
+                    row["walk_vs_plain_f32_max_abs"] = (walk - plain32).abs().max().item()
+                    emit({"phase": "moe_kernel", **row})
+                    if not row["walk_vs_plain_f32_max_abs"] <= F32_TOL:
+                        raise AssertionError(f"moe_kernel: {row}")
+                    rows.append(row)
+                    continue
+                xb, rb, sb = (t.bfloat16() for t in (x, res, shared))
+                sbf = tuple(t.bfloat16().contiguous() for t in stacked)
+                gold = M.routed_experts_walk(xb.float(), idx, w, tuple(t.float() for t in sbf),
+                                             rb.float(), sb.float())
+                k7 = lambda: M.routed_experts(xb, idx, w, sbf, rb, sb)  # noqa: E731
+                plain = lambda: rb + (M.routed_experts_plain(  # noqa: E731
+                    xb, idx, w, list(zip(*sbf))).bfloat16() + sb)
+                n0 = obs.counters().get(M.COUNTER, 0)
+                got = k7()
+                sync(device)
+                row["launches"] = obs.counters().get(M.COUNTER, 0) - n0
+                row["dispatch_equal"] = all(torch.equal(a.int(), b) for a, b in zip(
+                    M.dispatch(idx, e), M.dispatch_on_card(idx, e)))
+                row["bf16_mean_err"] = (got.float() - gold).abs().mean().item()
+                row["plain_bf16_mean_err"] = (plain().float() - gold).abs().mean().item()
+                row["ms"] = event_ms(k7, iters=20, warmup=2)
+                row["device_ms"] = kernel_device_ms(k7, "k7_", 10)
+                row["plain_ms"] = event_ms(plain, iters=3)
+                row["bound_ms"], row["bound_by"], row["experts_with_rows"] = moe_bound_ms(
+                    idx, e, d, inter)
+                if not row["device_ms"] > 0:
+                    raise AssertionError(f"moe_kernel: the profiler saw no k7_ kernel: {row}")
+                row.update(bound_share=row["bound_ms"] / row["device_ms"], card=card["nvidia_smi"])
+            emit({"phase": "moe_kernel", **row})
+            if not (row["launches"] == 4 and row["dispatch_equal"]
+                    and row["bf16_mean_err"] <= 1.02 * row["plain_bf16_mean_err"]):
+                raise AssertionError(f"moe_kernel: {row}")
+            rows.append(row)
+            del x, res, shared, stacked, sbf, gold
+    return rows
+
+
+def moonlight_tower(device, full: bool, dtype):
+    """Moonlight-16B-A3B's tower (models/moe_llm.py; the rehearsal's at tiny
+    widths: 2 layers, one dense, 8 experts top 2) built on the meta device
+    and its weights drawn on `device` in `dtype` tensor by tensor, as
+    init_random_ draws them (fan-in normal matrices, norm scales ~1): its
+    15.6 B parameters are never made in f32."""
+    from audiolcm_torch.models.moe_llm import MoELLM, MoELLMConfig
+
+    cfg = MoELLMConfig() if full else MoELLMConfig(
+        vocab_size=100, hidden_size=32, intermediate_size=48, moe_intermediate_size=16,
+        num_hidden_layers=2, num_attention_heads=2, n_routed_experts=8, n_shared_experts=1,
+        num_experts_per_tok=2, kv_lora_rank=16, qk_nope_head_dim=8, qk_rope_head_dim=4,
+        v_head_dim=8)
+    with torch.device("meta"):
+        tower = MoELLM(cfg)
+    gen, sd = torch.Generator(device).manual_seed(5), {}
+    for name, t in tower.state_dict().items():
+        p = torch.empty(t.shape, dtype=dtype, device=device)
+        if p.dim() >= 2:
+            p.normal_(0.0, p[0].numel() ** -0.5, generator=gen)
+        elif name.endswith("weight"):
+            p.normal_(1.0, 0.02, generator=gen)
+        else:
+            p.normal_(0.0, 0.02, generator=gen)
+        sd[name] = p
+    tower.load_state_dict(sd, strict=True, assign=True)
+    return tower
+
+
+def moonlight_generate_phase(device, full: bool, card: dict) -> dict:
+    """The LCM generate with Moonlight as its third caption tower (the cell
+    moonlight_lcm_b1_10s's path, random weights): batch 1, 10 s, 77 + 77 +
+    128 tokens, bf16, captured by api.prewarm_buckets; the launch counts of
+    one replay (K7 104: 4 in each of 26 expert layers; K1 2, K5 73, K6 72 as
+    without the tower), the replay against the eager waveform
+    (REPLAY_TOL), replay and eager ms, peak GB. The rehearsal: the eager
+    generate at tiny widths on the CPU (no K7: the plain loop)."""
+    from audiolcm_torch.models.dit import ConcatDiT2MLP
+    from audiolcm_torch.pipeline import AudioLCMPipeline
+
+    dtype = torch.bfloat16 if full else torch.float32
+    mods = build_modules(device, full)
+    tower = moonlight_tower(device, full, dtype)
+    kw = dit_kwargs(full)
+    with torch.device(device):
+        mods.dit = ConcatDiT2MLP(**kw, llm_context_dim=tower.config.hidden_size)
+    init_random_(mods.dit, torch.Generator(device).manual_seed(6))
+    mods.llm = tower
+    pipe = AudioLCMPipeline(mods, compute_dtype=dtype, device=device)
+    batch, latent, tok, llm_len = 1, (312 if full else 16), 77, 128
+    ids = token_ids(mods, batch, tok, seed=11)
+    llm_ids = torch.randint(0, tower.config.vocab_size, (batch, llm_len),
+                            generator=torch.Generator().manual_seed(12))
+    gen = lambda: torch.Generator(device).manual_seed(31)  # noqa: E731
+    run = lambda: pipe.generate(ids[0], ids[1], latent, generator=gen(),  # noqa: E731
+                                llm_ids=llm_ids)
+    row = {"batch": batch, "mel": 2 * latent, "tokens": tok, "llm_tokens": llm_len,
+           "tower_params": sum(p.numel() for p in tower.parameters())}
+    if not full:
+        reset_counts()
+        with torch.inference_mode():
+            wav, _ = run()
+        row.update(counts_eager=read_counts(), wav_shape=list(wav.shape))
+        emit({"phase": "moonlight_generate", **row})
+        if not (bool(torch.isfinite(wav).all()) and row["counts_eager"] == counts_with()):
+            raise AssertionError(f"moonlight_generate: {row}")
+        return row
+    from audiolcm_torch.api import prewarm_buckets
+
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    hows = prewarm_buckets(pipe, batch_sizes=(batch,), mel_buckets=(2 * latent,),
+                           llm_len=llm_len)
+    row["capture_s"] = time.perf_counter() - t0
+    with torch.inference_mode():
+        reset_counts()
+        wav_r, _ = run()
+        sync(device)
+        row["counts_per_replay"] = read_counts()
+        row["replay_ms"] = median_ms(run)
+        graphs = dict(pipe._graphs)
+        pipe._graphs.clear()
+        reset_counts()
+        wav_e, _ = run()
+        sync(device)
+        row["counts_eager"] = read_counts()
+        row["eager_ms"] = median_ms(run)
+        pipe._graphs.update(graphs)
+    row.update(hows={str(k): v for k, v in hows.items()},
+               replay_vs_eager_max_abs=(wav_r - wav_e).abs().max().item(), tol=REPLAY_TOL,
+               peak_gb=torch.cuda.max_memory_allocated(device) / 1e9, card=card["nvidia_smi"])
+    emit({"phase": "moonlight_generate", **row})
+    want = counts_with(amp_stage_mma=2, moe_experts=4 * 26,
+                       alias_free_act=k5_launches(mods.vocoder, dtype, True, 2 * latent),
+                       wide_conv=k6_launches(mods.vocoder, dtype, True, 2 * latent))
+    if not (list(hows.values()) == ["captured"] and row["counts_per_replay"] == want
+            and row["counts_eager"] == want and row["replay_vs_eager_max_abs"] <= REPLAY_TOL
+            and bool(torch.isfinite(wav_r).all())):
+        raise AssertionError(f"moonlight_generate: {row}")
+    pipe._graphs.clear()
+    return row
+
+
+def moe_row(kernel_rows: list, gen_row: dict) -> dict:
+    """The kernels line's K7 entry: launches per Moonlight generate, errors
+    against the plain loop, and the ms of the cell's call (128 tokens under
+    its uneven routing) beside its bound and the plain loop's."""
+    nm = "not measured"
+    cell = next((r for r in kernel_rows if r["tokens"] == 128 and r["skew"] == MOE_SKEW), {})
+    return {"name": "moe_experts", "route": "triton",
+            "source": "audiolcm_torch/nn/moe_experts.py",
+            "units": "tensor cores (Triton tl.dot bf16, f32 sums)",
+            "replaces": "no Pallas kernel: the JAX package has no expert layer",
+            "launches": gen_row.get("counts_per_replay", {}).get("moe_experts", nm),
+            "bf16_mean_err_ratio_max": max((r["bf16_mean_err"] / r["plain_bf16_mean_err"]
+                                            for r in kernel_rows if "bf16_mean_err" in r),
+                                           default=nm),
+            **{key: cell.get(key, nm) for key in ("ms", "device_ms", "bound_ms", "bound_by",
+                                                  "plain_ms")},
+            "library_ms": None,
+            "library_note": "no single PyTorch call computes a grouped expert SwiGLU",
+            "per_case": kernel_rows}
+
+
 def kernels_line(checks, k2_checks, flash_checks, times, k2_times, flash_time, gen_row,
                  teacher_row, act_checks, act_times, interior, build_row, act_forms,
                  wide_forms) -> dict:
@@ -4077,6 +4316,7 @@ def main(argv=None) -> int:
         act_times = time_act_phase(device, shapes[:2], card)
         act_forms = act_forms_phase(device, card)
         wide_forms = wide_conv_forms_phase(device, card)
+    moe_kernels = moe_kernel_phase(device, rehearsal, card)
     mark("time")
     mods = build_modules(device, full=not rehearsal)
     gen_row = generate_phase(device, mods, full=not rehearsal, card=card)
@@ -4127,6 +4367,8 @@ def main(argv=None) -> int:
     mark("open_clap")
     train_micro_phase(device, full=not rehearsal, card=card)
     mark("train_micro")
+    moon_row = moonlight_generate_phase(device, full=not rehearsal, card=card)
+    mark("moonlight_generate")
     emit({"phase": "seconds", "total": marks[-1][1] - marks[0][1],
           "by_phase": {n: t - marks[i][1] for i, (n, t) in enumerate(marks[1:])}})
     line = kernels_line(checks, k2_checks, flash_checks, times, k2_times, flash_time, gen_row,
@@ -4142,6 +4384,7 @@ def main(argv=None) -> int:
                     (k3, ("flash_attention.f32", "flash_attention.tc"))):
         k["launches_error_budget"] = {name: {c: r["launches"][c] for c in keys}
                                       for name, r in budget_row["rows"].items()}
+    line["kernels"].append(moe_row(moe_kernels, moon_row))
     emit(line)
     if rehearsal:
         emit({"rehearsal": True, "ok": True})

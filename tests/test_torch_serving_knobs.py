@@ -76,7 +76,7 @@ def test_generate_prefers_registered_entry():
     calls = []
 
     class Entry:
-        def replay(self, clap_ids, t5_ids, generator):
+        def replay(self, clap_ids, t5_ids, generator, llm_ids=None):
             calls.append(generator)
             return "wav", "mel"
 
